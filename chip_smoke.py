@@ -8,12 +8,18 @@ the GPU.
 Phases (any failure exits non-zero before the result lines):
 
 0. build every CUDA kernel of the ported paths from ``paddle_tpu_torch/csrc``
-   (one ``nvcc`` per source, all at once; ptxas's register report printed);
+   (one ``nvcc`` per source, all at once; ptxas's register and spill
+   report printed, and the dynamic shared memory of the wgmma flash
+   kernels and the ragged tile kernel);
 1. kernel vs plain version on the card: the ragged paged attention kernel
    against ``ragged_attention_ref`` at gpt2-small attention shapes (nh 12,
    hd 64, bs 16, T 256, S 8, C 32) over a pack that mixes decode rows,
    prefill chunks, a zero-length sequence, padding rows and left pads of
    more than one block — bf16, fp16, fp32 and int8 pools (plus hd 128);
+   a decode-only pack whose rows reach the table's last column (C*bs - 1)
+   in bf16 and int8, the mixed pack's 256 rows in a random order, and one
+   prefill chunk of 256 rows of one sequence at hd 128.  Real rows within
+   the dtype's tolerance, padding rows and rows inside their pad zero;
 2. card vs CPU: the port's ragged engine at gpt2-small width with 2 layers
    in fp32 serves the same 4 requests × 16 greedy tokens on both devices
    from the same weights; the streams must be equal, or diverge only where
@@ -34,13 +40,15 @@ Phases (any failure exits non-zero before the result lines):
    are not multiples of the 16-bit kernels' 128-row tiles), with a key
    mask that drops ~30% of the keys plus a run longer than a 64-key tile
    (or one covering a whole 128-key tile), with dropout 0.1, and at head
-   dim 128 in fp16, bf16 and fp32.  O within 2e-5 (fp32) / 2e-2
-   (16-bit), lse within 1e-4, gradients' max abs error relative to the
-   plain gradient's max abs
-   within 1e-4 (fp32) / 3e-2 (16-bit); and ``flash_fwd`` as the serving
-   admission prefill calls it (B 1, L 128, 12 heads, causal, the left-pad
-   key mask, pads 0/1/37/64, bf16 and fp32), its real rows against the
-   plain version at the same tolerances;
+   dim 128 in fp16, bf16 and fp32 (bf16 causal L 1024 with dropout the
+   heaviest dQ case).  O within 2e-5 (fp32) / 2e-2 (16-bit), lse within
+   1e-4, gradients' max abs error relative to the plain gradient's max
+   abs within 1e-4 (fp32) / 3e-2 (16-bit); ``flash_attention`` with a key
+   mask that is a view 4 bytes into its storage, held to the same
+   tolerances; and ``flash_fwd`` as the serving admission prefill calls
+   it (B 1, L 128, 12 heads, causal, the left-pad key mask, pads
+   0/1/37/64, bf16 and fp32), its real rows against the plain version at
+   the same tolerances;
 5. card vs CPU: ``make_gpt_train_step`` at gpt2-small width with 2 layers
    in fp32, B 2, L 256, AdamW(3e-4, wd 0.01), 5 steps from the same
    weights on both devices: losses within 1e-4 relative, final parameters
@@ -173,9 +181,25 @@ def say(*parts):
 
 # ------------------------------------------------------------- phase 1 --
 
-def make_pack(dtype, quantized, seed, nh=12, hd=64):
+# the phase-3 serve's pack: seq 0 has no rows; 1-4 decode one row; 5-7
+# prefill chunks whose pads cover whole blocks (rows left of a pad attend
+# nothing real)
+MIXED_ROWS = [(s, p) for s, ps in {1: [100], 2: [250], 3: [511], 4: [37],
+                                    5: range(0, 120), 6: range(64, 124),
+                                    7: range(200, 270)}.items() for p in ps]
+PACK_PADS = [0, 0, 17, 0, 3, 40, 20, 33]
+# a decode-only step: one row a sequence, three at the table's last column
+# (C * bs - 1), one inside its pad (zeros)
+DECODE_ROWS = [(0, 511), (1, 511), (2, 256), (3, 255), (4, 128), (5, 64),
+               (6, 1), (7, 511)]
+
+
+def make_pack(dtype, quantized, seed, nh=12, hd=64, rows=MIXED_ROWS,
+              shuffle=False):
     """One ragged pack at the serving step's shapes: S 8 sequences, 32
-    table columns of 16-position blocks, T 256 rows."""
+    table columns of 16-position blocks, T 256 rows: ``rows`` (sequence,
+    position) pairs then padding rows, or with ``shuffle`` all 256 rows in
+    a random order (sequences' rows out of order and interleaved)."""
     from paddle_tpu_torch.models._decode import quantize_kv
 
     dev = torch.device("cuda")
@@ -190,22 +214,18 @@ def make_pack(dtype, quantized, seed, nh=12, hd=64):
         pk, pv = k.to(dtype), v.to(dtype)
     table = (torch.randperm(NB1 - 1, generator=g, device=dev) + 1) \
         .view(S, MB).to(torch.int32)
-    # seq 0 has no rows; 1-4 decode one row; 5-7 prefill chunks whose pads
-    # cover whole blocks (rows left of a pad attend nothing real)
-    plan = {1: [100], 2: [250], 3: [511], 4: [37], 5: range(0, 120),
-            6: range(64, 124), 7: range(200, 270)}
-    pads = [0, 0, 17, 0, 3, 40, 20, 33]
-    rows = [(s, p) for s, ps in plan.items() for p in ps]
-    row_seq = np.full(T, -1, np.int32)
-    row_pos = np.full(T, -1, np.int32)
-    for i, (s, p) in enumerate(rows):
-        row_seq[i], row_pos[i] = s, p
+    rows = list(rows) + [(-1, -1)] * (T - len(rows))
+    if shuffle:
+        order = np.random.RandomState(seed).permutation(T)
+        rows = [rows[i] for i in order]
+    row_seq = np.asarray([s for s, _ in rows], np.int32)
+    row_pos = np.asarray([p for _, p in rows], np.int32)
     q = torch.randn(T, nh, hd, generator=g, device=dev).to(dtype)
     meta = [torch.from_numpy(a).to(dev)
-            for a in (row_seq, row_pos, np.asarray(pads, np.int32))]
+            for a in (row_seq, row_pos, np.asarray(PACK_PADS, np.int32))]
     return dict(q=q, pk=pk, pv=pv, table=table, row_seq=meta[0],
-                row_pos=meta[1], pad_lens=meta[2], rows=rows, pads=pads,
-                quantized=quantized)
+                row_pos=meta[1], pad_lens=meta[2], rows=rows,
+                pads=PACK_PADS, quantized=quantized)
 
 
 def pack_args(c):
@@ -215,23 +235,26 @@ def pack_args(c):
 
 def compare_pack(c, label):
     """Kernel vs plain on the real rows (a position at or past the row's
-    pad); padding rows must be zeros.  Returns the max abs error."""
+    pad); padding rows and rows inside their pad must be zeros.  Returns
+    the max abs error."""
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
 
     got = rpa.ragged_attention_cuda(*pack_args(c))
     want = rpa.ragged_attention_ref(*pack_args(c))
     torch.cuda.synchronize()
-    real = [i for i, (s, p) in enumerate(c["rows"]) if p >= c["pads"][s]]
+    real = [i for i, (s, p) in enumerate(c["rows"])
+            if p >= 0 and p >= c["pads"][s]]
+    zero = sorted(set(range(len(c["rows"]))) - set(real))
     g, w = got[real].float(), want[real].float()
     tol = TOL[c["q"].dtype]
     err = (g - w).abs().max().item()
     check(torch.isfinite(got).all().item(), f"{label}: non-finite output")
     check(torch.allclose(g, w, rtol=tol, atol=tol),
           f"{label}: kernel vs plain max abs err {err} > tol {tol}")
-    check(got[len(c["rows"]):].abs().max().item() == 0.0,
-          f"{label}: padding rows are not zero")
+    check(not zero or got[zero].abs().max().item() == 0.0,
+          f"{label}: padding rows or rows inside their pad are not zero")
     say(f"phase1 {label}: rows {len(real)} max_abs_err {err:.3e} "
-        f"(tol {tol})")
+        f"(tol {tol}), {len(zero)} zero rows")
     return err
 
 
@@ -245,7 +268,7 @@ def pack_bound(c):
     deepest = {}
     flops = 0
     for s, p in c["rows"]:
-        if p >= c["pads"][s]:
+        if p >= 0 and p >= c["pads"][s]:
             deepest[s] = max(deepest.get(s, -1), p)
             flops += 4 * nh * hd * (p - c["pads"][s] + 1)
     per_pos = nh * hd * (1 if c["quantized"] else q.element_size())
@@ -282,13 +305,18 @@ def time_cold_ms(fn, iters=30, warmup=3):
 
 
 def time_pack(c):
-    """(kernel ms, plain ms, library ms, bound ms, bound_by) for a pack."""
+    """(kernel ms, plain ms, library ms, bound ms, bound_by, plan ms) for a
+    pack.  The kernel is timed as the main path calls it, with the pack's
+    plan built beforehand (``decode_ragged`` builds it once for all 12
+    layers); the plan's own time is the last entry."""
     import torch.nn.functional as F
     from paddle_tpu_torch.models._decode import dequantize_cache
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
 
     args = pack_args(c)
-    ms = time_cold_ms(lambda: rpa.ragged_attention_cuda(*args))
+    plan = rpa.ragged_plan(*args[4:])
+    ms = time_cold_ms(lambda: rpa.ragged_attention_cuda(*args, plan=plan))
+    plan_ms = time_cold_ms(lambda: rpa.ragged_plan(*args[4:]))
     plain_ms = time_cold_ms(lambda: rpa.ragged_attention_ref(*args))
     # the library yardstick: SDPA over each row's gathered dense K/V with
     # a boolean mask of [pad, row_pos] — the gather is not timed
@@ -312,7 +340,37 @@ def time_pack(c):
     library_ms = time_cold_ms(
         lambda: F.scaled_dot_product_attention(qs, k, v, attn_mask=mask))
     bound_ms, bound_by = pack_bound(c)
-    return ms, plain_ms, library_ms, bound_ms, bound_by
+    return ms, plain_ms, library_ms, bound_ms, bound_by, plan_ms
+
+
+def say_pack_time(label, t, card):
+    say(f"timing {label} on {card}: kernel {t[0]:.4f} ms (plan built "
+        f"beforehand, once a pack: {t[5]:.4f} ms), plain {t[1]:.4f} ms, "
+        f"sdpa {t[2]:.4f} ms, bound {t[3]:.4f} ms ({t[4]})")
+
+
+def phase1():
+    """Every ragged case against the plain version; returns (the mixed bf16
+    pack, its error, the int8 pack, the decode-only bf16 pack)."""
+    main_pack = make_pack(torch.bfloat16, False, seed=0)
+    err = compare_pack(main_pack, "bf16 pools")
+    compare_pack(make_pack(torch.float16, False, seed=1), "fp16 pools")
+    compare_pack(make_pack(torch.float32, False, seed=2), "fp32 pools")
+    int8_pack = make_pack(torch.bfloat16, True, seed=3)
+    compare_pack(int8_pack, "int8 pools, bf16 q")
+    compare_pack(make_pack(torch.float32, True, seed=4), "int8 pools, fp32 q")
+    compare_pack(make_pack(torch.bfloat16, False, seed=5, nh=6, hd=128),
+                 "bf16 pools, hd 128")
+    decode_pack = make_pack(torch.bfloat16, False, seed=6, rows=DECODE_ROWS)
+    compare_pack(decode_pack, "decode-only to C*bs - 1, bf16 pools")
+    compare_pack(make_pack(torch.bfloat16, True, seed=7, rows=DECODE_ROWS),
+                 "decode-only to C*bs - 1, int8 pools")
+    compare_pack(make_pack(torch.bfloat16, False, seed=8, shuffle=True),
+                 "rows out of sequence order, bf16 pools")
+    compare_pack(make_pack(torch.bfloat16, False, seed=9, nh=6, hd=128,
+                           rows=[(3, p) for p in range(100, 356)]),
+                 "one prefill chunk of 256 rows, hd 128, bf16 pools")
+    return main_pack, err, int8_pack, decode_pack
 
 
 # ------------------------------------------------------------- phase 2 --
@@ -562,6 +620,10 @@ FLASH_CASES = [
      (128, 256), 0.0),
     ("bf16 hd128 dropout 0.1 L256", torch.bfloat16, False, 256, 128, False,
      0.1),
+    # dQ's heaviest: head dim 128's 64-key tiles, the causal edge and the
+    # dropout pass together over 16 key tiles a block
+    ("bf16 hd128 causal dropout 0.1 L1024", torch.bfloat16, True, 1024, 128,
+     False, 0.1),
 ]
 
 
@@ -620,7 +682,43 @@ def phase4():
             f"{lerr:.3e}, dq/dk/dv err / max|grad| "
             + "/".join(f"{e:.3e}" for e in gerr)
             + f" (tol {GRAD_TOL[dt]})")
+    phase4_misaligned_mask()
     phase4_prefill()
+
+
+def phase4_misaligned_mask():
+    """``flash_attention`` with a key mask that is a view 4 bytes into its
+    storage (``big[:, 1:L + 1]``): the public function copies it to an
+    aligned tensor, so the kernels run and agree with the plain version."""
+    from paddle_tpu_torch.ops import attention as A
+
+    B, L, H, D, dt = 1, 256, 4, 64, torch.bfloat16
+    q, k, v, do, km = flash_inputs(B, L, H, D, dt, True, seed=77)
+    big = torch.zeros(B, L + 44, device="cuda")
+    big[:, 1:L + 1] = km
+    view = big[:, 1:L + 1]
+    check(view.data_ptr() % 16 != 0, "phase4 misaligned mask: view aligned")
+    qk = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = A.flash_fwd_cuda.launches
+    out = A.flash_attention(*qk, causal=True, key_mask=view)
+    grads = torch.autograd.grad(out, qk, do)
+    check(A.flash_fwd_cuda.launches == before + 1,
+          "phase4 misaligned mask: the flash kernel did not run")
+    qp = [t.clone().requires_grad_() for t in (q, k, v)]
+    out_p, _ = A.flash_fwd_ref(*qp, km, 0, True, 1.0 / D ** 0.5, 0.0)
+    grads_p = torch.autograd.grad(out_p, qp, do)
+    torch.cuda.synchronize()
+    err = (out.float() - out_p.float()).abs().max().item()
+    check(torch.allclose(out.float(), out_p.float(), rtol=TOL[dt],
+                         atol=TOL[dt]),
+          f"phase4 misaligned mask: O max abs err {err} > tol {TOL[dt]}")
+    gerr = [rel_err(a, b) for a, b in zip(grads, grads_p)]
+    check(max(gerr) <= GRAD_TOL[dt],
+          f"phase4 misaligned mask: dq/dk/dv relative errors {gerr}")
+    say(f"phase4 misaligned key mask view (offset 4 bytes, B {B}, L {L}, "
+        f"bf16, causal): O max abs err {err:.3e} (tol {TOL[dt]}), dq/dk/dv "
+        f"err / max|grad| " + "/".join(f"{e:.3e}" for e in gerr)
+        + f" (tol {GRAD_TOL[dt]})")
 
 
 def phase4_prefill():
@@ -1664,6 +1762,23 @@ def demangle(symbol):
     return name.replace("(anonymous namespace)::", "") or symbol
 
 
+def say_shared_memory():
+    """The dynamic shared memory a block of each 16-bit flash kernel and of
+    the ragged tile kernel takes (ptxas reports static memory only)."""
+    from paddle_tpu_torch.ops import _build
+
+    fa = _build.load_library("flash_attention")
+    ra = _build.load_library("ragged_paged_attention")
+    for hd in (64, 128):
+        flash = ", ".join(f"{name} {fa.flash_smem_bytes(i, hd)}" for i, name
+                          in enumerate(("flash_fwd_wgmma",
+                                        "flash_bwd_dq_wgmma",
+                                        "flash_bwd_dkv_wgmma")))
+        say(f"  shared memory at hd {hd} (bytes a block): {flash}; "
+            f"ragged_tiles 16-bit q {ra.ragged_smem_bytes(2, hd)}, fp32 q "
+            f"{ra.ragged_smem_bytes(0, hd)}")
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
@@ -1698,16 +1813,9 @@ def main():
                 say(f"  ptxas {name}: {demangle(line.split(chr(39))[1])}")
             elif "registers" in line or "spill" in line:
                 say(f"  ptxas {name}:   {line.strip()}")
+    say_shared_memory()
 
-    main_pack = make_pack(torch.bfloat16, False, seed=0)
-    err = compare_pack(main_pack, "bf16 pools")
-    compare_pack(make_pack(torch.float16, False, seed=1), "fp16 pools")
-    compare_pack(make_pack(torch.float32, False, seed=2), "fp32 pools")
-    int8_pack = make_pack(torch.bfloat16, True, seed=3)
-    compare_pack(int8_pack, "int8 pools, bf16 q")
-    compare_pack(make_pack(torch.float32, True, seed=4), "int8 pools, fp32 q")
-    compare_pack(make_pack(torch.bfloat16, False, seed=5, nh=6, hd=128),
-                 "bf16 pools, hd 128")
+    main_pack, err, int8_pack, decode_pack = phase1()
 
     phase2()
     launches = phase3()
@@ -1721,14 +1829,12 @@ def main():
     phase11()
     decode_launches = phase12()
 
-    ms, plain_ms, library_ms, bound_ms, bound_by = time_pack(main_pack)
-    say(f"timing bf16 pools at the phase-3 shapes on {card}: kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by})")
-    t8 = time_pack(int8_pack)
-    say(f"timing int8 pools at the phase-3 shapes on {card}: kernel "
-        f"{t8[0]:.4f} ms, plain {t8[1]:.4f} ms, sdpa {t8[2]:.4f} ms, "
-        f"bound {t8[3]:.4f} ms ({t8[4]})")
+    ms, plain_ms, library_ms, bound_ms, bound_by, _ = t = time_pack(main_pack)
+    say_pack_time("bf16 pools at the phase-3 shapes", t, card)
+    say_pack_time("int8 pools at the phase-3 shapes", time_pack(int8_pack),
+                  card)
+    say_pack_time("a decode-only bf16 pack (8 rows, 3 at C*bs - 1)",
+                  time_pack(decode_pack), card)
     d = time_decode(serve_decode_case())
     say(f"timing paged_decode_attention at the phase-12 decode shape (S 8, "
         f"nh 12, hd 64, bs 32, C 20, clocks 128-639, bf16) on {card}: kernel "

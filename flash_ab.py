@@ -1,35 +1,53 @@
 #!/usr/bin/env python3
-"""Time two builds of the port's flash attention kernels against each other
-on one card, in turns.
+"""Time two builds of the port's attention kernels against each other on
+one card, in turns.
 
-    git show <rev>:paddle_tpu_torch/csrc/flash_attention.cu > .scratch/old.cu
-    python3 flash_ab.py .scratch/old.cu
+    git show <rev>:paddle_tpu_torch/csrc/flash_attention.cu > .scratch/fa.cu
+    git show <rev>:paddle_tpu_torch/csrc/ragged_paged_attention.cu \\
+        > .scratch/rpa.cu
+    python3 flash_ab.py .scratch/fa.cu --ragged .scratch/rpa.cu
 
-Builds the given source (with the checkout's ``csrc`` headers and
+Builds each given source (with the checkout's ``csrc`` headers and
 ``_build``'s flags) into a throwaway library beside it, and the checkout's
-own source as ``_build`` does.  Both libraries are held against the plain
-versions at each shape, then ``flash_fwd`` and ``flash_bwd_dkv`` of both
-are timed with ``chip_smoke.time_cold_ms`` (L2 flushed before every launch)
-in the order old, new, new, old, at the phase-6 shapes (B 16, L 1024, H 12,
-D 64, bf16, causal), the phase-9 shapes (B 16, L 512, not causal) and the
-admission-prefill shape (B 1, L 128, causal), with SDPA's forward and
-whole backward beside them.  Prints one line a kernel and shape, the card's
-``nvidia-smi`` name and power limit first.  Needs a CUDA card.
+own sources as ``_build`` does.  Both builds are held against the plain
+versions first, then timed with ``chip_smoke.time_cold_ms`` (L2 flushed
+before every launch) in the order old, new, new, old:
+
+- flash (the positional source): ``flash_fwd``, ``flash_bwd_dq`` and
+  ``flash_bwd_dkv`` at the phase-6 shapes (B 16, L 1024, H 12, D 64, bf16,
+  causal), the phase-9 shapes (B 16, L 512, not causal) and the
+  admission-prefill shape (B 1, L 128, causal), with SDPA's forward and
+  whole backward beside them;
+- ragged (``--ragged``, a source whose C interface takes no plan, as
+  the per-row kernel's did): ``ragged_paged_attention`` at phase 1's
+  mixed bf16 pack and its decode-only bf16 pack, the new build with the
+  pack's plan built beforehand as the engine does, and each build's host
+  time a call; then the phase-3 serve with each build: its wall ms a
+  step untraced in three rounds, and 20 steps traced by
+  ``torch.profiler`` (device busy a step and the kernels by time).
+
+Prints one line a kernel and shape, the card's ``nvidia-smi`` name and
+power limit first.  Needs a CUDA card.
 """
 
+import argparse
 import ctypes
+import math
 import subprocess
-import sys
+import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 import chip_smoke as cs
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import attention as A
+from paddle_tpu_torch.ops import ragged_paged_attention as rpa
 
 SHAPES = [("phase-6", 16, 1024, True), ("phase-9", 16, 512, False),
           ("prefill", 1, 128, True)]
+TURNS = ("old", "new", "new", "old")
 
 
 def build_old(src: Path) -> ctypes.CDLL:
@@ -54,13 +72,34 @@ def kernel_of(lib):
     return get
 
 
-def main():
-    cs.check(torch.cuda.is_available(), "needs a CUDA card")
-    cs.check(len(sys.argv) == 2, "usage: flash_ab.py OLD_SOURCE.cu")
-    card = cs.card_line()
-    cs.say(f"card: {card}")
-    _build.build_all(["flash_attention"])
-    builds = {"new": A._kernel, "old": kernel_of(build_old(Path(sys.argv[1])))}
+def in_turns(builds, use, fn):
+    """{old, new: [ms, ms]} of ``fn`` timed in the order old, new, new,
+    old, ``use(build)`` selecting a build before each turn."""
+    ms = {"old": [], "new": []}
+    for turn in TURNS:
+        use(builds[turn])
+        ms[turn].append(cs.time_cold_ms(fn))
+    use(builds["new"])
+    return ms
+
+
+def say_ab(what, ms, card, lib_ms=None, bound=None):
+    old, new = (sum(ms[t]) / 2 for t in ("old", "new"))
+    extra = ("" if lib_ms is None else
+             f", sdpa {lib_ms:.4f} ms (new / sdpa {new / lib_ms:.2f}x, old / "
+             f"sdpa {old / lib_ms:.2f}x)")
+    extra += "" if bound is None else f", bound {bound[0]:.4f} ms ({bound[1]})"
+    cs.say(f"ab {what} on {card}: old {ms['old'][0]:.4f}/{ms['old'][1]:.4f} "
+           f"ms, new {ms['new'][0]:.4f}/{ms['new'][1]:.4f} ms, old / new "
+           f"{old / new:.2f}x{extra}")
+
+
+def ab_flash(src, card):
+    builds = {"new": A._kernel, "old": kernel_of(build_old(src))}
+
+    def use(build):
+        A._kernel = build
+
     H, D, dt, scale = 12, 64, torch.bfloat16, 0.125
     for label, B, L, causal in SHAPES:
         q, k, v, do, km = cs.flash_inputs(B, L, H, D, dt, False, seed=7)
@@ -68,18 +107,21 @@ def main():
         delta = (do.float() * out_p.float()).sum(-1).permute(0, 2, 1) \
             .reshape(B * H, L).contiguous()
         bwd = (q, k, v, km, 0, do, lse, delta, causal, scale, 0.0)
-        _, dk_p, dv_p = A.flash_bwd_ref(*bwd)
+        dq_p, dk_p, dv_p = A.flash_bwd_ref(*bwd)
         calls = {"flash_fwd": lambda: A.flash_fwd_cuda(q, k, v, km, 0, causal,
                                                        scale, 0.0),
+                 "flash_bwd_dq": lambda: A.flash_bwd_dq_cuda(*bwd),
                  "flash_bwd_dkv": lambda: A.flash_bwd_dkv_cuda(*bwd)}
         for name, build in builds.items():            # both right first
-            A._kernel = build
+            use(build)
             out, _ = calls["flash_fwd"]()
+            dq = calls["flash_bwd_dq"]()
             dk, dv = calls["flash_bwd_dkv"]()
-            errs = (cs.rel_err(out, out_p), cs.rel_err(dk, dk_p),
-                    cs.rel_err(dv, dv_p))
+            errs = (cs.rel_err(out, out_p), cs.rel_err(dq, dq_p),
+                    cs.rel_err(dk, dk_p), cs.rel_err(dv, dv_p))
             cs.check(max(errs) <= cs.GRAD_TOL[dt],
                      f"{name} build disagrees at {label}: {errs}")
+        use(builds["new"])
         qh, kh, vh, doh = (t.transpose(1, 2).contiguous()
                            for t in (q, k, v, do))
         lib = {"flash_fwd": cs.time_cold_ms(
@@ -88,23 +130,137 @@ def main():
         leaves = [t.requires_grad_() for t in (qh, kh, vh)]
         o = torch.nn.functional.scaled_dot_product_attention(
             *leaves, is_causal=causal)
-        lib["flash_bwd_dkv"] = cs.time_cold_ms(lambda: torch.autograd.grad(
-            o, leaves, doh, retain_graph=True))
+        lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = cs.time_cold_ms(
+            lambda: torch.autograd.grad(o, leaves, doh, retain_graph=True))
         for name, fn in calls.items():
-            ms = {"old": [], "new": []}
-            for turn in ("old", "new", "new", "old"):
-                A._kernel = builds[turn]
-                ms[turn].append(cs.time_cold_ms(fn))
-            A._kernel = builds["new"]
-            old, new = (sum(ms[t]) / 2 for t in ("old", "new"))
-            bound, by = cs.flash_bound(name, B, L, H, D, dt, causal)
-            cs.say(f"ab {name} at {label} (B {B}, L {L}, H {H}, D {D}, bf16, "
-                   f"{'causal' if causal else 'not causal'}) on {card}: old "
-                   f"{ms['old'][0]:.4f}/{ms['old'][1]:.4f} ms, new "
-                   f"{ms['new'][0]:.4f}/{ms['new'][1]:.4f} ms, old / new "
-                   f"{old / new:.2f}x, sdpa {lib[name]:.4f} ms (new / sdpa "
-                   f"{new / lib[name]:.2f}x, old / sdpa {old / lib[name]:.2f}"
-                   f"x), bound {bound:.4f} ms ({by})")
+            say_ab(f"{name} at {label} (B {B}, L {L}, H {H}, D {D}, bf16, "
+                   f"{'causal' if causal else 'not causal'})",
+                   in_turns(builds, use, fn), card, lib[name],
+                   cs.flash_bound(name, B, L, H, D, dt, causal))
+
+
+def old_ragged_call(lib):
+    """The old build's ``ragged_paged_attention`` (the per-row kernel's
+    interface: no plan, no scratch) with ``ragged_attention_cuda``'s
+    arguments and argument checks, as its wrapper was; 16-bit or fp32
+    pools only."""
+    fn = lib.ragged_paged_attention
+    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 10
+                   + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+    def call(q, pk, pv, table, rs, rp, pad, plan=None):
+        rpa._check_kernel_args(q, pk, pv, table, rs, rp, pad)
+        T, nh, hd = q.shape
+        out = torch.empty_like(q)
+        rc = fn(rpa._DTYPE_CODE[q.dtype], 0, hd, q.data_ptr(), pk.data_ptr(),
+                pv.data_ptr(), None, None, table.data_ptr(), rs.data_ptr(),
+                rp.data_ptr(), pad.data_ptr(), out.data_ptr(), T, nh,
+                pk.shape[1], table.shape[1], table.shape[0],
+                1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
+        cs.check(rc == 0, f"old ragged kernel launch failed ({rc})")
+        return out
+    return call
+
+
+def ab_ragged(src, card):
+    old = old_ragged_call(build_old(src))
+    packs = [("phase 1's mixed bf16 pack (T 256, 254 rows)",
+              cs.make_pack(torch.bfloat16, False, seed=0)),
+             ("phase 1's decode-only bf16 pack (8 rows, 3 at C*bs - 1)",
+              cs.make_pack(torch.bfloat16, False, seed=6,
+                           rows=cs.DECODE_ROWS))]
+    for label, c in packs:
+        args = cs.pack_args(c)
+        plan = rpa.ragged_plan(*args[4:])
+        builds = {"old": lambda: old(*args),
+                  "new": lambda: rpa.ragged_attention_cuda(*args, plan=plan)}
+        want = rpa.ragged_attention_ref(*args)
+        real = [i for i, (s, p) in enumerate(c["rows"])
+                if p >= 0 and p >= c["pads"][s]]
+        for name, fn in builds.items():                # both right first
+            got = fn()
+            err = (got[real].float() - want[real].float()).abs().max().item()
+            cs.check(err <= cs.TOL[torch.bfloat16],
+                     f"{name} ragged build disagrees at {label}: {err}")
+        current = {}
+        ms = in_turns(builds, lambda b: current.update(fn=b),
+                      lambda: current["fn"]())
+        say_ab(f"ragged_paged_attention at {label}", ms, card,
+               bound=cs.pack_bound(c))
+        meta = [t.cpu() for t in args[4:]]        # as the engine holds it
+        cs.say(f"ab ragged host time a call at {label}: old "
+               f"{host_us(builds['old']):.1f} us, new "
+               f"{host_us(builds['new']):.1f} us (plan given); "
+               f"ragged_plan of the pack on CPU tensors "
+               f"{host_us(lambda: rpa.ragged_plan(*meta)):.1f} us")
+    ab_ragged_serve(old, card)
+
+
+def host_us(fn, n=300):
+    """Host time of one call of ``fn`` (argument checks, allocation,
+    launches), with the device kept busy so no launch waits on it."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(400_000_000)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def ab_ragged_serve(old, card):
+    """The phase-3 serve (gpt2-small, bf16, the ``gpt_serving`` traffic)
+    with each build: three rounds of old, new, new, old untraced (wall ms
+    a step), then one serve of each with steps 60-79 traced (device busy a
+    step and the ragged kernels' share, as the serve's own packs see them:
+    warm L2, mostly short decode rows).  Both builds run behind the same
+    engine, which builds each pack's plan on the host."""
+    from paddle_tpu_torch.models.gpt import GPTModel, gpt_preset
+
+    cfg = gpt_preset("gpt2-small", compute_dtype="bfloat16")
+    model = GPTModel(cfg, device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(0))
+    reqs = cs.serving_traffic(cfg.vocab_size)
+    new = rpa.ragged_attention_cuda
+    cs.serve(model, reqs)                               # warm-up
+    walls = {"old": [], "new": []}
+    for turn in TURNS * 3:
+        rpa.ragged_attention_cuda = old if turn == "old" else new
+        eng, wall = cs.serve(model, reqs)[:2]
+        walls[turn].append(1e3 * wall / eng.ragged_steps)
+    for turn in ("old", "new"):
+        rpa.ragged_attention_cuda = old if turn == "old" else new
+        cs.say(f"ab serve, {turn} ragged kernel, on {card}, traced:")
+        cs.serve(model, reqs, profile_steps=(60, 80))
+    rpa.ragged_attention_cuda = new
+    cs.say(f"ab serve ms/step untraced on {card}: old "
+           f"{' '.join(f'{w:.3f}' for w in walls['old'])} (median "
+           f"{np.median(walls['old']):.3f}), new "
+           f"{' '.join(f'{w:.3f}' for w in walls['new'])} (median "
+           f"{np.median(walls['new']):.3f})")
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("flash", nargs="?", type=Path,
+                    help="an old flash_attention.cu")
+    ap.add_argument("--ragged", type=Path,
+                    help="an old ragged_paged_attention.cu")
+    opts = ap.parse_args()
+    cs.check(torch.cuda.is_available(), "needs a CUDA card")
+    cs.check(opts.flash is not None or opts.ragged is not None,
+             "give an old flash source, --ragged OLD, or both")
+    card = cs.card_line()
+    cs.say(f"card: {card}")
+    _build.build_all(["flash_attention", "ragged_paged_attention"])
+    if opts.flash is not None:
+        ab_flash(opts.flash, card)
+    if opts.ragged is not None:
+        ab_ragged(opts.ragged, card)
 
 
 if __name__ == "__main__":

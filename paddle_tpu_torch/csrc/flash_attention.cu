@@ -21,32 +21,36 @@
 // positions only, so any tiling gives the TPU's 128..512 blocks' bits.
 //
 // What bounds them on this card: at the training shapes (L 1024, D 64,
-// bf16, causal) the forward does 25.8 GFLOP and dK/dV 51.5 GFLOP over
+// bf16, causal) the forward does 25.8 GFLOP, dQ 38.7 and dK/dV 51.5 over
 // ~100-150 MB, so the tensor cores (989 TFLOP/s dense) bound them at about
-// 26 and 52 us, HBM (3.35 TB/s) at 30-40 us; at D 64 the softmax's
+// 26, 39 and 52 us, HBM (3.35 TB/s) at 30-40 us; at D 64 the softmax's
 // exponentials (16 a clock on an SM) cost as much as the products.
 // What the design does:
-//   - 16-bit forward and dK/dV (the training and prefill paths): one block
-//     of three warpgroups per (bh, 128-row tile).  A producer warp streams
-//     the other axis's tiles by TMA (128-byte swizzle, 64-column boxes)
-//     into a ring of two shared-memory stages guarded by full/empty
+//   - 16-bit forward, dQ and dK/dV (the training and prefill paths): one
+//     block of three warpgroups per (bh, 128-row tile).  A producer warp
+//     streams the other axis's tiles by TMA (128-byte swizzle, 64-column
+//     boxes) into a ring of two shared-memory stages guarded by full/empty
 //     mbarriers, so loads run under the products; two consumer
 //     warpgroups of 64 rows each run every product as wgmma, the only
 //     instruction that reaches the tensor cores' rate.  The forward
 //     computes S = Q K^T with both operands K-major in shared memory and
 //     O += P V with P from registers (the S accumulator, rounded in place)
 //     and V read as an MN-major operand straight from its [key][D] tile:
-//     no transposed copy.  dK/dV keeps its 128 keys' K and V resident and
-//     streams 64-query tiles (32 at head dim 128, so dK, dV, S^T and dP^T
-//     fit in registers) of Q, dO, lse and delta; S^T = K Q^T and dP^T =
+//     no transposed copy.  dQ keeps its 128 queries' Q and dO resident and
+//     streams K, V and the key mask in the forward's key tiles; S = Q K^T
+//     and dP = dO V^T from shared memory, dQ += dS K with dS from registers
+//     and K read MN-major in place, as the forward reads V.  dK/dV keeps
+//     its 128 keys' K and V resident and streams 64-query tiles (32 at
+//     head dim 128, so dK, dV, S^T and dP^T fit in registers) of Q, dO,
+//     lse and delta; S^T = K Q^T and dP^T =
 //     V dO^T from shared memory, dV += P^T dO and dK += dS^T Q with A from
 //     registers and dO, Q MN-major in place.  Key tiles are 128 at head
 //     dim 64 and 64 at 128 (register budget).  The softmax runs in the
 //     log2 domain: scale log2(e) and the mask in one FMA, ex2.approx.
-//     Results leave through shared memory and TMA stores that clip rows
-//     past L.  setmaxnreg gives the consumers 232 registers, the producer
-//     40.  The shared helpers are sm90.cuh;
-//   - 16-bit dQ runs on mma.sync m16n8k16 (see its section below);
+//     Uniform branches (the causal/length edge, dropout) sit outside the
+//     unrolled loops.  Results leave through shared memory and TMA stores
+//     that clip rows past L.  setmaxnreg gives the consumers 232
+//     registers, the producer 40.  The shared helpers are sm90.cuh;
 //   - fp32 inputs keep an exact fp32 path on the CUDA cores: tiles staged
 //     as fp32 in shared memory with one float of padding per row, a
 //     256-thread block as a 16x16 grid computing 4x4 patches of the 64x64
@@ -459,217 +463,6 @@ flash_bwd_dkv_kernel(Params p) {
       dvp[g + tx + 16 * j] = from_float<T>(dv[i][j]);
     }
   }
-}
-
-// ===================================================================
-// 16-bit dQ on the tensor cores (mma.sync m16n8k16, fp32 accumulate).
-//
-// A block is 4 warps; each warp owns 16 query rows of the block's 64-row
-// tile and all 64 columns of the key tile.  Operand fragments are read
-// from shared memory as 32-bit pairs; tiles are stored with 8 elements of
-// padding per row, so the 8 row groups x 4 pair columns of a fragment load
-// hit 32 banks.  K, whose reduction in dS.K runs over tile rows, is also
-// stored transposed.  Scores and dS stay fp32 in registers; dS is rounded
-// to the input type only as the A operand of dS.K: the score tile's
-// accumulator layout is the A-fragment layout.  S is (q.k) * scale here,
-// where the fp32 kernels above take (q * scale).k.
-// ===================================================================
-
-constexpr int kMmaThreads = 128;     // 4 warps x 16 rows
-constexpr int kTS = kTile + 8;       // padded row of a transposed tile
-
-using sm90::pack2;
-
-template <typename T>
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1);
-template <>
-__device__ __forceinline__ void mma16816<__nv_bfloat16>(
-    float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-template <>
-__device__ __forceinline__ void mma16816<__half>(
-    float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <typename T>
-__device__ __forceinline__ uint32_t lds32(const T* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Rows [row0, row0 + 64) of head bh of a (B, L, H, D) tensor, 16 bytes a
-// thread at a time, into `rows` ([64][D + 8]) and/or `cols` ([D][72],
-// the transpose).
-template <typename T, int D>
-__device__ __forceinline__ void load_tile16(T* __restrict__ rows,
-                                            T* __restrict__ cols,
-                                            const T* __restrict__ src,
-                                            const Params& p, int bh,
-                                            int row0) {
-  constexpr int CH = D / 8;
-  const int b = bh / p.H, h = bh % p.H;
-  for (int e = threadIdx.x; e < kTile * CH; e += kMmaThreads) {
-    const int r = e / CH, c = (e % CH) * 8;
-    const long long g =
-        ((static_cast<long long>(b) * p.L + row0 + r) * p.H + h) * D + c;
-    const uint4 v = *reinterpret_cast<const uint4*>(src + g);
-    if (rows) *reinterpret_cast<uint4*>(rows + r * (D + 8) + c) = v;
-    if (cols) {
-      const T* x = reinterpret_cast<const T*>(&v);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) cols[(c + i) * kTS + r] = x[i];
-    }
-  }
-}
-
-// acc[n][.] += A(16 rows of `a`, from row a0) . B^T, where B's rows are
-// the 64 tile rows of `bm` (8 n-tiles of 8) and the reduction runs over
-// K columns; a, bm row-major with row stride LD.
-template <typename T, int K, int LD>
-__device__ __forceinline__ void mma_rows(const T* __restrict__ a, int a0,
-                                         const T* __restrict__ bm,
-                                         float (&acc)[kTile / 8][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, tq = (lane & 3) * 2;
-#pragma unroll
-  for (int ks = 0; ks < K / 16; ++ks) {
-    const T* ar = a + (a0 + g) * LD + ks * 16 + tq;
-    const uint32_t af[4] = {lds32(ar), lds32(ar + 8 * LD), lds32(ar + 8),
-                            lds32(ar + 8 * LD + 8)};
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) {
-      const T* br = bm + (n * 8 + g) * LD + ks * 16 + tq;
-      mma16816<T>(acc[n], af, lds32(br), lds32(br + 8));
-    }
-  }
-}
-
-// out[n][.] += P . Bt^T with P a warp's 16 x 64 tile held in accumulator
-// layout (rounded to T here) and Bt a transposed [N][72] tile: the
-// product's columns are Bt's N rows.
-template <typename T, int N>
-__device__ __forceinline__ void mma_p(const float (&pr)[kTile / 8][4],
-                                      const T* __restrict__ bt,
-                                      float (&out)[N / 8][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, tq = (lane & 3) * 2;
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
-    const uint32_t af[4] = {pack2<T>(pr[2 * kk][0], pr[2 * kk][1]),
-                            pack2<T>(pr[2 * kk][2], pr[2 * kk][3]),
-                            pack2<T>(pr[2 * kk + 1][0], pr[2 * kk + 1][1]),
-                            pack2<T>(pr[2 * kk + 1][2], pr[2 * kk + 1][3])};
-#pragma unroll
-    for (int n = 0; n < N / 8; ++n) {
-      const T* br = bt + (n * 8 + g) * kTS + kk * 16 + tq;
-      mma16816<T>(out[n], af, lds32(br), lds32(br + 8));
-    }
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&x)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) x[i][0] = x[i][1] = x[i][2] = x[i][3] = 0.f;
-}
-
-// A warp's 16 x D result in accumulator layout, times `mul`, to rows
-// row0 + (lane >> 2) (+ 8) of head bh of a (B, L, H, D) tensor.
-template <typename T, int D>
-__device__ __forceinline__ void store_rows16(T* __restrict__ dst,
-                                             const float (&acc)[D / 8][4],
-                                             float mul0, float mul1,
-                                             const Params& p, int bh,
-                                             int row0) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, tq = (lane & 3) * 2;
-  const int b = bh / p.H, h = bh % p.H;
-  const long long r0 =
-      ((static_cast<long long>(b) * p.L + row0 + g) * p.H + h) * D;
-  const long long r1 = r0 + 8LL * p.H * D;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    *reinterpret_cast<uint32_t*>(dst + r0 + n * 8 + tq) =
-        pack2<T>(acc[n][0] * mul0, acc[n][1] * mul0);
-    *reinterpret_cast<uint32_t*>(dst + r1 + n * 8 + tq) =
-        pack2<T>(acc[n][2] * mul1, acc[n][3] * mul1);
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dq_mma(Params p) {
-  constexpr int LD = D + 8, NT = kTile / 8;
-  extern __shared__ float smem[];
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* dOs = Qs + kTile * LD;
-  T* Ks = dOs + kTile * LD;
-  T* Vs = Ks + kTile * LD;
-  T* Kt = Vs + kTile * LD;                         // [D][kTS]
-  float* Km = reinterpret_cast<float*>(Kt + D * kTS);
-  float* Lse = Km + kTile;
-  float* Dl = Lse + kTile;
-
-  const int nq = p.L / kTile, qt = nq - 1 - blockIdx.x;
-  const int bh = blockIdx.y, b = bh / p.H;
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = (lane & 3) * 2;
-  const int lr0 = w * 16 + g;                      // local rows lr0, lr0 + 8
-  const int row0 = qt * kTile + lr0;
-  const uint32_t mixed = p.seed + static_cast<uint32_t>(bh) * 0xC2B2AE3Du;
-
-  load_tile16<T, D>(Qs, nullptr, static_cast<const T*>(p.q), p, bh,
-                    qt * kTile);
-  load_tile16<T, D>(dOs, nullptr, static_cast<const T*>(p.dout), p, bh,
-                    qt * kTile);
-  if (threadIdx.x < kTile) {
-    const long long r =
-        static_cast<long long>(bh) * p.L + qt * kTile + threadIdx.x;
-    Lse[threadIdx.x] = p.lse[r];
-    Dl[threadIdx.x] = p.delta[r];
-  }
-  float acc[D / 8][4];
-  zero(acc);
-  const int kt_end = p.causal ? qt + 1 : nq;
-  for (int kt = 0; kt < kt_end; ++kt) {
-    __syncthreads();
-    load_tile16<T, D>(Ks, Kt, static_cast<const T*>(p.k), p, bh, kt * kTile);
-    load_tile16<T, D>(Vs, nullptr, static_cast<const T*>(p.v), p, bh,
-                      kt * kTile);
-    if (threadIdx.x < kTile)
-      Km[threadIdx.x] =
-          p.kmask[static_cast<long long>(b) * p.L + kt * kTile + threadIdx.x];
-    __syncthreads();
-    float s[NT][4], dp[NT][4];
-    zero(s);
-    zero(dp);
-    mma_rows<T, D, LD>(Qs, w * 16, Ks, s);
-    mma_rows<T, D, LD>(dOs, w * 16, Vs, dp);
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = n * 8 + tq + (e & 1), r = e >> 1;
-        float v = s[n][e] * p.scale + Km[c];
-        if (p.causal && kt * kTile + c > row0 + r * 8) v = kNegInf;
-        const float pr = expf(v - Lse[lr0 + r * 8]);
-        float pd = pr;
-        if (p.dropout)
-          pd = keep_bit(mixed, row0 + r * 8, kt * kTile + c, p.thresh)
-                   ? pr / p.keep_div : 0.f;
-        s[n][e] = pd * dp[n][e] - pr * Dl[lr0 + r * 8];
-      }
-    mma_p<T, D>(s, Kt, acc);
-  }
-  store_rows16<T, D>(static_cast<T*>(p.dq), acc, p.scale, p.scale, p, bh,
-                     qt * kTile + w * 16);
 }
 
 // ===================================================================
@@ -1115,8 +908,204 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tmQ,
   }
 }
 
-// shared bytes of each kernel: fp32 kernels (padded D-wide tiles, 64x64
-// tiles, rows), then the 16-bit dQ (padded row and transposed tiles)
+template <int D>
+struct DqCfg {
+  static constexpr int BM = 128;                    // queries a block
+  static constexpr int BN = D == 64 ? 128 : 64;     // keys a tile
+  static constexpr int Q_BYTES = BM * D * 2;        // Q or dO
+  static constexpr int KV_BYTES = BN * D * 2;       // a K or a V tile
+  static constexpr int OFF_DO = Q_BYTES;
+  static constexpr int OFF_K = 2 * Q_BYTES;
+  static constexpr int OFF_V = OFF_K + kStages * KV_BYTES;
+  static constexpr int OFF_KM = OFF_V + kStages * KV_BYTES;
+  static constexpr int OFF_BAR = OFF_KM + kStages * BN * 4;
+  static constexpr int BYTES = OFF_BAR + 8 * (2 * kStages + 1) + 1024;
+};
+
+// One block per (bh, 128-query tile), heaviest causal tiles first: Q and
+// dO stay resident, K, V and the key mask stream through the ring; it owns
+// dQ of its rows and walks the key tiles in order (no atomics).
+template <typename T, int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tmQ,
+                   const __grid_constant__ CUtensorMap tmK,
+                   const __grid_constant__ CUtensorMap tmV,
+                   const __grid_constant__ CUtensorMap tmdO,
+                   const __grid_constant__ CUtensorMap tmdQ, Params p) {
+  using C = DqCfg<D>;
+  constexpr int BM = C::BM, BN = C::BN, NB = D / 64;
+  extern __shared__ uint8_t smem_wg[];
+  uint8_t* sm = align1024(smem_wg);
+  uint8_t* Qs = sm;                                 // NB boxes of BM rows
+  uint8_t* dOs = sm + C::OFF_DO;
+  uint8_t* Ks = sm + C::OFF_K;                      // stages of NB boxes
+  uint8_t* Vs = sm + C::OFF_V;
+  float* Kms = reinterpret_cast<float*>(sm + C::OFF_KM);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
+  uint64_t* empty = full + kStages;
+  uint64_t* qfull = empty + kStages;
+
+  const int nq = (p.L + BM - 1) / BM, qt = nq - 1 - blockIdx.x;
+  const int q0 = qt * BM;
+  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  // causal: key tiles past the tile's last row hold no key it attends
+  const int last = p.causal ? min(q0 + BM - 1, p.L - 1) : p.L - 1;
+  const int nkt = last / BN + 1;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 256);
+    }
+    sm90::mbar_init(qfull, 1);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {                                    // producer
+    sm90::setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      sm90::mbar_arrive_tx(qfull, 2 * C::Q_BYTES);
+      for (int c = 0; c < NB; ++c) {
+        sm90::tma_load_4d(Qs + c * BM * 128, &tmQ, qfull, 64 * c, h, q0, b);
+        sm90::tma_load_4d(dOs + c * BM * 128, &tmdO, qfull, 64 * c, h, q0,
+                          b);
+      }
+      for (int i = 0; i < nkt; ++i) {
+        const int s = i % kStages, k0 = i * BN;
+        if (i >= kStages) sm90::mbar_wait(&empty[s], (i / kStages - 1) & 1);
+        const int kmb = min(BN, p.L - k0) * 4;      // the key mask, to L
+        sm90::mbar_arrive_tx(&full[s], 2 * C::KV_BYTES + kmb);
+        for (int c = 0; c < NB; ++c) {
+          sm90::tma_load_4d(Ks + s * C::KV_BYTES + c * BN * 128, &tmK,
+                            &full[s], 64 * c, h, k0, b);
+          sm90::tma_load_4d(Vs + s * C::KV_BYTES + c * BN * 128, &tmV,
+                            &full[s], 64 * c, h, k0, b);
+        }
+        sm90::bulk_load(Kms + s * BN,
+                        p.kmask + static_cast<long long>(b) * p.L + k0, kmb,
+                        &full[s]);
+      }
+    }
+  } else {                                          // consumers
+    sm90::setmaxnreg_inc<232>();
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int g = lane / 4, tq = lane % 4;
+    const int row0 = q0 + 64 * wg + 16 * warp + g;  // and row0 + 8
+    const float sl2 = p.scale * kLog2e;
+    const uint32_t mixed = p.seed + static_cast<uint32_t>(bh) * 0xC2B2AE3Du;
+    float lse2[2], dl[2];                           // rows past L: unused
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const long long i = static_cast<long long>(bh) * p.L + row0 + 8 * r;
+      const bool in = row0 + 8 * r < p.L;
+      lse2[r] = in ? p.lse[i] * kLog2e : 0.f;
+      dl[r] = in ? p.delta[i] : 0.f;
+    }
+    float dq[D / 2];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) dq[j] = 0.f;
+    // this warpgroup's rows of Q and dO; a k16 step adds its byte offset / 16
+    const uint64_t dq0 = sm90::desc_b128(Qs + wg * 64 * 128, 16, 1024);
+    const uint64_t ddo0 = sm90::desc_b128(dOs + wg * 64 * 128, 16, 1024);
+
+    sm90::mbar_wait(qfull, 0);
+    for (int i = 0; i < nkt; ++i) {
+      const int s = i % kStages, k0 = i * BN;
+      sm90::mbar_wait(&full[s], (i / kStages) & 1);
+      const uint8_t* Kt = Ks + s * C::KV_BYTES;
+      const uint8_t* Vt = Vs + s * C::KV_BYTES;
+      const float* km = Kms + s * BN;
+
+      float sc[BN / 2], dp[BN / 2];                 // S = Q K^T, dP = dO V^T
+      const uint64_t dk0 = sm90::desc_b128(Kt, 16, 1024);
+      const uint64_t dv0 = sm90::desc_b128(Vt, 16, 1024);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < D / 16; ++k) {
+        const int ka = ((k / 4) * BM * 128 + (k % 4) * 32) >> 4;
+        const int kb = ((k / 4) * BN * 128 + (k % 4) * 32) >> 4;
+        sm90::Wgmma<T, BN>::ss(sc, dq0 + ka, dk0 + kb, k > 0);
+        sm90::Wgmma<T, BN>::ss(dp, ddo0 + ka, dv0 + kb, k > 0);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
+      sm90::fence_regs(dp);
+
+      // P = exp(S scale + mask - lse) in the log2 domain
+      const bool edge = (p.causal && k0 + BN - 1 > q0 + 64 * wg) ||
+                        k0 + BN > p.L;
+#pragma unroll
+      for (int j = 0; j < BN / 2; ++j)
+        sc[j] = fmaf(sc[j], sl2, km[8 * (j / 4) + 2 * tq + (j % 2)] * kLog2e);
+      if (edge) {                         // one branch, outside the loops
+#pragma unroll
+        for (int j = 0; j < BN / 2; ++j) {
+          const int c = k0 + 8 * (j / 4) + 2 * tq + (j % 2);
+          if (p.causal && c > row0 + 8 * ((j / 2) % 2)) sc[j] = kNegInf2;
+          if (c >= p.L) sc[j] = -INFINITY;          // no key: out entirely
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < BN / 2; ++j) sc[j] = ex2(sc[j] - lse2[(j / 2) % 2]);
+      // dS = Pd dP - P delta, Pd the kept probabilities / (1 - p)
+      if (p.dropout) {                    // one branch, outside the loops
+#pragma unroll
+        for (int j = 0; j < BN / 2; ++j) {
+          const int r = (j / 2) % 2;
+          const float pd = keep_bit(mixed, row0 + 8 * r,
+                                    k0 + 8 * (j / 4) + 2 * tq + (j % 2),
+                                    p.thresh) ? sc[j] / p.keep_div : 0.f;
+          dp[j] = pd * dp[j] - sc[j] * dl[r];
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < BN / 2; ++j)
+          dp[j] = sc[j] * (dp[j] - dl[(j / 2) % 2]);
+      }
+
+      uint32_t sa[BN / 16][4];                      // dS, before the fence
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) sm90::acc_to_a<T>(dp, kk, sa[kk]);
+      // K again, MN-major in place: the leading byte offset is a box
+      const uint64_t dkT = sm90::desc_b128(Kt, BN * 128, 1024);
+      sm90::fence_regs(dq);                         // dQ += dS K
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        sm90::Wgmma<T, D>::rs(dq, sa[kk], dkT + kk * 16 * 128 / 16, 1);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(dq);
+      sm90::mbar_arrive(&empty[s]);
+    }
+
+    // scale dQ into this warpgroup's own Q rows (no longer read), in TMA's
+    // swizzled layout, then one TMA store per box; rows past L clip
+    uint8_t* dQw = Qs + wg * 64 * 128;
+#pragma unroll
+    for (int j = 0; j < D / 2; j += 2) {
+      const int lr = 16 * warp + g + 8 * ((j / 2) % 2);
+      const int col = 8 * (j / 4) + 2 * tq;
+      *reinterpret_cast<uint32_t*>(dQw + (col / 64) * BM * 128 +
+                                   swz(lr, col % 64)) =
+          sm90::pack2<T>(dq[j] * p.scale, dq[j + 1] * p.scale);
+    }
+    sm90::fence_async();
+    sm90::named_sync(1 + wg, 128);
+    if (t == 0 && q0 + 64 * wg < p.L) {
+      for (int c = 0; c < NB; ++c)
+        sm90::tma_store_4d(&tmdQ, dQw + c * BM * 128, 64 * c, h,
+                           q0 + 64 * wg, b);
+      sm90::tma_store_wait();
+    }
+  }
+}
+
+// shared bytes of the fp32 kernels (padded D-wide tiles, 64x64 tiles,
+// rows)
 template <int D>
 constexpr int fwd_bytes() {
   return 4 * (3 * kTile * (D + 1) + kTile * kTP + kTile);
@@ -1129,10 +1118,6 @@ template <int D>
 constexpr int dkv_bytes() {
   return 4 * (4 * kTile * (D + 1) + 2 * kTile * kTP + 3 * kTile);
 }
-template <int D>
-constexpr int dq_mma_bytes() {
-  return 2 * (4 * kTile * (D + 8) + D * kTS) + 4 * 3 * kTile;
-}
 template <typename Kern>
 int launch(Kern kernel, int bytes, int threads, const Params& p,
            cudaStream_t stream) {
@@ -1144,7 +1129,7 @@ int launch(Kern kernel, int bytes, int threads, const Params& p,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The 16-bit forward and dK/dV: tensor maps of the (B, L, H, D) operands
+// The 16-bit kernels: tensor maps of the (B, L, H, D) operands
 // built here, on the host, and passed by value as __grid_constant__.
 template <typename Kern, typename... Args>
 int launch_wg(Kern kernel, int bytes, dim3 grid, cudaStream_t stream,
@@ -1189,6 +1174,22 @@ int launch_dkv_wgmma(const Params& p, cudaStream_t stream) {
 }
 
 template <typename T, int D>
+int launch_dq_wgmma(const Params& p, cudaStream_t stream) {
+  using C = DqCfg<D>;
+  CUtensorMap tq, tk, tv, tdo, tdq;
+  int e;
+  if ((e = sm90::blhd_map<T>(&tq, p.q, p.B, p.L, p.H, D, C::BM)) ||
+      (e = sm90::blhd_map<T>(&tk, p.k, p.B, p.L, p.H, D, C::BN)) ||
+      (e = sm90::blhd_map<T>(&tv, p.v, p.B, p.L, p.H, D, C::BN)) ||
+      (e = sm90::blhd_map<T>(&tdo, p.dout, p.B, p.L, p.H, D, C::BM)) ||
+      (e = sm90::blhd_map<T>(&tdq, p.dq, p.B, p.L, p.H, D, 64)))
+    return e;
+  return launch_wg(flash_bwd_dq_wgmma<T, D>, C::BYTES,
+                   dim3((p.L + C::BM - 1) / C::BM, p.B * p.H), stream, tq, tk,
+                   tv, tdo, tdq, p);
+}
+
+template <typename T, int D>
 int run_d(int which, const Params& p, cudaStream_t s) {
   if constexpr (std::is_same<T, float>::value) {
     if (which == 0)
@@ -1198,9 +1199,7 @@ int run_d(int which, const Params& p, cudaStream_t s) {
     return launch(flash_bwd_dkv_kernel<T, D>, dkv_bytes<D>(), kThreads, p, s);
   } else {
     if (which == 0) return launch_fwd_wgmma<T, D>(p, s);
-    if (which == 1)
-      return launch(flash_bwd_dq_mma<T, D>, dq_mma_bytes<D>(), kMmaThreads,
-                    p, s);
+    if (which == 1) return launch_dq_wgmma<T, D>(p, s);
     return launch_dkv_wgmma<T, D>(p, s);
   }
 }
@@ -1295,4 +1294,17 @@ extern "C" int flash_bwd_dkv(int dtype, int hd, const void* q, const void* k,
   p.dk = dk;
   p.dv = dv;
   return dispatch(2, dtype, hd, p, stream);
+}
+
+// Dynamic shared memory a 16-bit kernel takes at head dim hd (64 or 128):
+// which 0 forward, 1 dQ, 2 dK/dV; -1 otherwise.
+extern "C" int flash_smem_bytes(int which, int hd) {
+  if (hd != 64 && hd != 128) return -1;
+  const bool d64 = hd == 64;
+  switch (which) {
+    case 0: return d64 ? FwdCfg<64>::BYTES : FwdCfg<128>::BYTES;
+    case 1: return d64 ? DqCfg<64>::BYTES : DqCfg<128>::BYTES;
+    case 2: return d64 ? BwdCfg<64>::BYTES : BwdCfg<128>::BYTES;
+    default: return -1;
+  }
 }

@@ -27,6 +27,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from .. import resolve_device
 from ..ops.attention import flash_attention
 from ..ops.loss import softmax_cross_entropy_mean
+from ..ops.ragged_paged_attention import ragged_plan
 from ._decode import (CausalDecoderMixin, PagedKV, cached_attention,
                       dequantize_cache, ragged_attention, ragged_write,
                       write_cache)
@@ -232,29 +233,36 @@ class GPTModel(CausalDecoderMixin, nn.Module):
             + self._cw("blocks_fc2_b", l)
 
     def _block_decode_ragged(self, l, h, pck, pcv, table, row_seq, row_pos,
-                             pad_lens):
+                             pad_lens, plan):
         """Layer ``l`` for a flattened ragged pack: h (1, T, H); pck/pcv
-        are this layer's block pools.  Each row's k/v is written to its
-        pool position BEFORE attention, so a prefill chunk's rows attend
-        each other's fresh keys."""
+        are this layer's block pools; ``plan`` the attention kernel's work
+        list (the CPU's plain version reads none).  Each row's k/v is
+        written to its pool position BEFORE attention, so a prefill
+        chunk's rows attend each other's fresh keys."""
         q, k, v = self._block_qkv(l, h)                    # (1, T, nh, hd)
         ragged_write(pck, k[0], table, row_seq, row_pos)
         ragged_write(pcv, v[0], table, row_seq, row_pos)
         att = ragged_attention(q[0].contiguous(), pck, pcv, table, row_seq,
-                               row_pos, pad_lens)
+                               row_pos, pad_lens, plan)
         return self._block_post_attn(l, h, att[None])
 
     @torch.no_grad()
-    def decode_ragged(self, h, pools, table, row_seq, row_pos, pad_lens):
+    def decode_ragged(self, h, pools, table, row_seq, row_pos, pad_lens,
+                      plan=None):
         """All layers for one mixed ragged step: h (1, T, H) from
         ``_embed_ragged``; ``pools`` = (pool_k, pool_v) stacked over layers
         (int8 ``(values, scales)`` pairs included), updated IN PLACE; table
         (S, C) int32 shared across layers; row metadata as
-        ``ops/ragged_paged_attention.ragged_rows``.  Returns (h, pools)."""
+        ``ops/ragged_paged_attention.ragged_rows``; ``plan`` the attention
+        kernel's ``ragged_plan`` of these rows, built here on a card when
+        None.  Every layer shares it.  Returns (h, pools)."""
         ck, cv = pools
+        if plan is None and h.device.type == "cuda":
+            plan = ragged_plan(row_seq, row_pos, pad_lens)
         for l in range(self.config.num_layers):
             h = self._block_decode_ragged(l, h, _layer(ck, l), _layer(cv, l),
-                                          table, row_seq, row_pos, pad_lens)
+                                          table, row_seq, row_pos, pad_lens,
+                                          plan)
         return h, pools
 
     # --------------------------------------------------- KV-cache decode --

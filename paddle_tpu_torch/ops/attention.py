@@ -393,6 +393,10 @@ def flash_attention(q, k, v, causal=False, scale=None, key_mask=None,
         kmask = (torch.zeros(B, L, dtype=torch.float32, device=q.device)
                  if key_mask is None
                  else key_mask.reshape(B, L).to(torch.float32))
+        if kmask.data_ptr() % 16:
+            # a view at an odd offset (e.g. big[:, 1:L + 1]): the kernels
+            # copy the mask 16 bytes at a time
+            kmask = kmask.clone(memory_format=torch.contiguous_format)
         return _FlashAttention.apply(q, k, v, kmask, seed, causal, scale,
                                      float(dropout_p))
     mask4 = None if key_mask is None else \

@@ -47,6 +47,7 @@ import torch
 
 from .jit.bucketing import pow2_bucket, select_bucket
 from .models._decode import PagedKV
+from .ops.ragged_paged_attention import ragged_plan
 from .serving import ContinuousBatchingEngine, _map_planes
 
 __all__ = ["PagedContinuousBatchingEngine",
@@ -494,21 +495,27 @@ class RaggedPagedContinuousBatchingEngine(PagedContinuousBatchingEngine):
 
     def _run_pack(self, toks, row_seq, row_pos, C, sample_rows):
         """The device half of a step: one host→device copy of every int32
-        operand, embed → all layers → head over the S sampled rows → sample,
-        and one device→host read of the (S,) tokens.  Rows of slots with
-        nothing to sample read a dummy row (computed, ignored)."""
+        operand (the attention kernel's work list, ``ragged_plan``, built
+        here on the host from the pack's rows, among them), embed → all
+        layers → head over the S sampled rows → sample, and one
+        device→host read of the (S,) tokens.  Rows of slots with nothing to
+        sample read a dummy row (computed, ignored)."""
         S, T = self.S, self.token_budget
+        plan = ragged_plan(torch.from_numpy(row_seq),
+                           torch.from_numpy(row_pos),
+                           torch.from_numpy(self._pad)).numpy()
         host = np.concatenate([toks, row_seq, row_pos, self._pad,
-                               sample_rows, self._table[:, :C].ravel()])
+                               sample_rows, self._table[:, :C].ravel(),
+                               plan.ravel()])
         dev = torch.from_numpy(host).to(self.device)
-        toks_d, seq_d, pos_d, pad_d, samp_d, tab_d = torch.split(
-            dev, [T, T, T, S, S, S * C])
+        toks_d, seq_d, pos_d, pad_d, samp_d, tab_d, plan_d = torch.split(
+            dev, [T, T, T, S, S, S * C, plan.size])
         table = tab_d.view(S, C)
         m = self.model
         with torch.no_grad():
             h = m._embed_ragged(toks_d, seq_d, pos_d, pad_d)
             h, _ = m.decode_ragged(h, self.caches, table, seq_d, pos_d,
-                                   pad_d)
+                                   pad_d, plan_d.view(plan.shape))
             logits = m.decode_logits(h[0, samp_d.long()][:, None])
             ntok = self._sample(logits, self.generator)
         return ntok.cpu().numpy()

@@ -168,6 +168,31 @@ class TestDenseAndDispatch:
         with pytest.raises(ValueError, match="dropout_seed"):
             T.flash_attention(q, q, q, dropout_p=0.1)
 
+    def test_misaligned_key_mask_view(self, monkeypatch):
+        """A (B, L) key mask that is a view 4 bytes into its storage (the
+        kernels copy the mask 16 bytes at a time) reaches _FlashAttention
+        16-byte aligned and unchanged, and the output matches the
+        reference's flash_attention on the same mask."""
+        L = 128
+        q, k, v, _ = _qkv(L, seed=5)
+        km = _key_mask(L)
+        big = torch.zeros(B * L + 1)
+        view = big[1:].view(B, L)
+        view.copy_(torch.tensor(km))
+        assert view.is_contiguous() and view.data_ptr() % 16 == 4
+        seen = []
+        real = T._FlashAttention.apply
+        monkeypatch.setattr(T._FlashAttention, "apply",
+                            lambda *a: seen.append(a[3]) or real(*a))
+        got = T.flash_attention(*(torch.tensor(x) for x in (q, k, v)),
+                                causal=True, key_mask=view)
+        assert len(seen) == 1 and seen[0].data_ptr() % 16 == 0
+        assert torch.equal(seen[0], view)
+        want = A.flash_attention(*(jnp.asarray(x) for x in (q, k, v)),
+                                 causal=True, key_mask=jnp.asarray(km))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                                   atol=2e-5)
+
     def test_dense_dropout_draws_from_a_generator(self):
         q, k, v, _ = (torch.tensor(x) for x in _qkv(96))
         a = T.flash_attention(q, k, v, dropout_p=0.5, dropout_seed=3)
@@ -275,9 +300,11 @@ class TestKernelSources:
                "flash_attention.cu").read_text()
         hdr = (Path(T.__file__).resolve().parent.parent / "csrc" /
                "sm90.cuh").read_text()
-        for name in ("flash_fwd_wgmma", "flash_bwd_dkv_wgmma"):
+        for name in ("flash_fwd_wgmma", "flash_bwd_dq_wgmma",
+                     "flash_bwd_dkv_wgmma"):
             assert f"\n{name}(" in src
-        for gone in ("flash_fwd_mma", "flash_bwd_dkv_mma"):
+        for gone in ("flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma",
+                     "mma.sync", "Kt + D"):
             assert gone not in src
         assert '#include "sm90.cuh"' in src
         for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor",

@@ -134,6 +134,132 @@ class TestPlainAttentionParity:
         np.testing.assert_allclose(got, kern, **TOL)
 
 
+class TestRowOrderAndTableEdge:
+    """Packs the engine does not build but the kernel must take: rows out
+    of sequence order, and decode rows at the table's last column."""
+
+    def _three(self, c, rs, rp):
+        """(port plain, JAX gather reference, Pallas kernel in interpret
+        mode) on row metadata, real rows only."""
+        jk, jv = _pools(c, True)
+        tk, tv = _pools(c, False)
+        jargs = (jnp.asarray(c["q"]), jk, jv, jnp.asarray(c["table"]),
+                 jnp.asarray(rs), jnp.asarray(rp), jnp.asarray(c["pad"]))
+        ref = jrpa.ragged_attention_ref(*jargs)
+        kern = jrpa.ragged_attention_rows(*jargs, interpret=True)
+        got = trpa.ragged_attention_rows(
+            torch.from_numpy(c["q"]), tk, tv, torch.from_numpy(c["table"]),
+            torch.from_numpy(rs), torch.from_numpy(rp),
+            torch.from_numpy(c["pad"]))
+        real = rp >= 0
+        return got.numpy()[real], np.asarray(ref)[real], \
+            np.asarray(kern)[real]
+
+    @pytest.mark.parametrize("seed", [0, 3])
+    def test_rows_out_of_sequence_order(self, seed):
+        c = _case(seed)
+        rs, rp = _rows(c)
+        perm = np.random.RandomState(seed + 50).permutation(len(rs))
+        c["q"] = c["q"][perm]
+        got, ref, kern = self._three(c, rs[perm], rp[perm])
+        np.testing.assert_allclose(got, ref, **TOL)
+        np.testing.assert_allclose(got, kern, **TOL)
+
+    @pytest.mark.parametrize("quantized", [False, True])
+    def test_decode_only_to_the_last_column(self, quantized):
+        """One decode row a sequence, two at C * bs - 1, padding after."""
+        c = _case(13, quantized=quantized)                  # C 4, bs 8
+        c["cu"] = np.asarray([0, 1, 2, 3, 4], np.int32)
+        c["kv"] = np.asarray([32, 32, 17, 9], np.int32)
+        c["pad"] = np.asarray([0, 5, 3, 8], np.int32)
+        rs, rp = _rows(c)
+        assert list(rp[:4]) == [31, 31, 16, 8] and (rp[4:] == -1).all()
+        got, ref, kern = self._three(c, rs, rp)
+        np.testing.assert_allclose(got, ref, **TOL)
+        np.testing.assert_allclose(got, kern, **TOL)
+
+
+class TestRaggedPlan:
+    """The kernel's work list (``ragged_plan``) on hand cases: tiles are
+    runs of one sequence cut every 16 rows, splits cover [pad, a tile's
+    last position], padding rows belong to no tile."""
+
+    def _plan(self, rows, pads, T):
+        """(tiles as (first row, rows), items a tile, split a tile) from
+        ``ragged_plan``, after checking its layout: zeros past the last
+        tile, the per-row copies of each tile's pad and split, and the items
+        numbered 0.. in each tile in tile order."""
+        rows = list(rows) + [(len(pads) - 1, -1)] * (T - len(rows))
+        rs = torch.tensor([s for s, _ in rows], dtype=torch.int32)
+        rp = torch.tensor([p for _, p in rows], dtype=torch.int32)
+        plan = trpa.ragged_plan(rs, rp, torch.tensor(pads, dtype=torch.int32))
+        assert plan.dtype == torch.int32 and tuple(plan.shape) == (23, T)
+        row0, nrows, seq, lo, split, row_lo, row_split = plan.numpy()[:7]
+        item_tile = plan.numpy()[7:15].ravel()
+        item_k = plan.numpy()[15:].ravel()
+        n = int((nrows > 0).sum())
+        assert (nrows[n:] == 0).all()
+        tiles = [(int(a), int(b)) for a, b in zip(row0[:n], nrows[:n])]
+        for t, (a, b) in enumerate(tiles):
+            assert seq[t] == rs[a] and lo[t] == max(pads[rs[a]], 0)
+            assert (row_lo[a:a + b] == lo[t]).all()
+            assert (row_split[a:a + b] == split[t]).all()
+        used = item_tile < T
+        assert used.sum() == 0 or used[:used.sum()].all()   # items first
+        items = np.bincount(item_tile[used], minlength=n)[:n]
+        assert list(item_tile[used]) == sorted(item_tile[used])
+        assert list(item_k[used]) == [k for c in items for k in range(c)]
+        return tiles, [int(i) for i in items], split
+    def test_runs_tiles_and_padding_rows(self):
+        # seq 2 x 20 rows, a padding row, seq 0 x 3, seq 2 x 2 (a new run)
+        rows = ([(2, p) for p in range(20)] + [(1, -1)]
+                + [(0, p) for p in (5, 6, 7)] + [(2, 20), (2, 21)])
+        tiles, items, split = self._plan(rows, [0, 0, 0], 32)
+        assert tiles == [(0, 16), (16, 4), (21, 3), (24, 2)]
+        # last positions 15, 19, 7, 21 from pad 0: one 64-position split
+        assert items == [1, 1, 1, 1] and list(split[:4]) == [64] * 4
+
+    def test_splits(self):
+        rows = [(0, 511), (1, 1000), (2, 63), (3, 73), (3, 74), (4, 3)]
+        pads = [0, 0, 0, 10, 5]
+        tiles, items, split = self._plan(rows, pads, 8)
+        assert tiles == [(0, 1), (1, 1), (2, 1), (3, 2), (5, 1)]
+        # 512 positions: 8 splits of 64; 1001: at most 8, so 8 of 128;
+        # 64: one; [10, 74] is 65: two; pad 5 past position 3: none
+        assert items == [8, 8, 1, 2, 0]
+        assert list(split[:5]) == [64, 128, 64, 64, 64]
+
+    def test_kernel_reads_the_same_layout(self):
+        """The CUDA kernel reads the plan with its own copies of the tile
+        height and the split cap: they must be the plan's."""
+        from pathlib import Path
+
+        src = (Path(trpa.__file__).resolve().parent.parent / "csrc" /
+               "ragged_paged_attention.cu").read_text()
+        assert f"kTileRows = {trpa._TILE_ROWS};" in src
+        assert f"kMaxSplits = {trpa._MAX_SPLITS};" in src
+        assert trpa._PLAN_ROWS == 7 + 2 * trpa._MAX_SPLITS
+
+    @pytest.mark.parametrize("seed", range(4))
+    def test_tiles_cover_ragged_rows(self, seed):
+        """On the generator's packs (in order and shuffled): every real row
+        lies in exactly one tile, a tile is at most 16 consecutive rows of
+        one sequence, and its splits cover [pad, its last position]."""
+        c = _case(seed, T=40)
+        rs, rp = _rows(c)
+        for order in (np.arange(len(rs)),
+                      np.random.RandomState(seed).permutation(len(rs))):
+            s, p = rs[order], rp[order]
+            tiles, items, split = self._plan(list(zip(s, p)), list(c["pad"]),
+                                             len(s))
+            covered = sorted(r for a, n in tiles for r in range(a, a + n))
+            assert covered == sorted(np.flatnonzero(p >= 0))
+            for (a, n), k, sp in zip(tiles, items, split):
+                assert 1 <= n <= 16 and len(set(s[a:a + n])) == 1
+                span = int(p[a:a + n].max()) - int(c["pad"][s[a]]) + 1
+                assert k == max(0, -(-span // int(sp))) <= 8
+
+
 class TestKernelWrapperGuards:
     """The CUDA wrapper's checks run before any pointer leaves Python; on
     a machine without a card they are what can be exercised."""
