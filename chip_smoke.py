@@ -10,7 +10,8 @@ Phases (any failure exits non-zero before the result lines):
 0. build every CUDA kernel of the ported paths from ``paddle_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once; ptxas's register and spill
    report printed, and the dynamic shared memory of the wgmma flash
-   kernels and the ragged tile kernel);
+   kernels, the ragged tile kernel, the paged decode kernel (with its tile
+   size) and the LN backward (with its warps a block));
 1. kernel vs plain version on the card: the ragged paged attention kernel
    against ``ragged_attention_ref`` at gpt2-small attention shapes (nh 12,
    hd 64, bs 16, T 256, S 8, C 32) over a pack that mixes decode rows,
@@ -63,9 +64,14 @@ Phases (any failure exits non-zero before the result lines):
    ``fused_ln_bwd`` (through ``_FusedLN``'s autograd) against
    ``ln_fwd_ref``/``ln_bwd_ref`` in fp32, fp16 and bf16, H 64/768/1024/100,
    N 8192/24/200, with and without bias and the rout cotangent, dropout 0
-   and 0.1 (the keep pattern equal to the plain version's exactly): out
+   and 0.1 (the keep pattern equal to the plain version's exactly), and
+   for the persistent backward fewer rows than its grid's warps (N 1000),
+   a row count no multiple of them (N 5000, N 4099 at H 100 on the scalar
+   path), operands misaligned by one element (the scalar path), fp32 H
+   1024 and a row too wide for registers (bf16 H 2000): out
    and rout within 2e-5 (fp32) / 2e-2 (16-bit), gradients within 1e-4 /
-   3e-2 of the plain gradient's max abs; ``fused_adamw_flat`` over 3 steps
+   3e-2 of the plain gradient's max abs; the backward launched twice on
+   the same inputs gives the same bits; ``fused_adamw_flat`` over 3 steps
    at BERT-base's 110,111,042 parameters in fp32 (1e-6 of the max abs) and
    one bf16-parameter case;
 8. card vs CPU: ``make_bert_train_step`` at bert-base width with 2 layers
@@ -88,9 +94,13 @@ Phases (any failure exits non-zero before the result lines):
    in bf16, fp16 and fp32, hd 64 and 128, block sizes 4, 16 and 32, with
    and without left pads, over slots whose clocks include 0 and
    ``C*bs - 1``, one all-trash table row, one parked clock past the table
-   (``t // bs >= C``) and one row with nothing to attend (zeros), the serve shape in bf16 and fp32: every
+   (``t // bs >= C``) and one row with nothing to attend (zeros), the serve
+   shape in bf16 and fp32, tiles spanning several pool blocks at the
+   serve's 12 heads (bs 4), fp32 hd 128 at 12 heads (4-position tiles) and
+   slots whose ranges leave whole tiles skipped at both ends: every
    element within 2e-5 (fp32), or 2e-5 plus one ulp of the element (2^-7
-   of it in bf16, 2^-10 in fp16);
+   of it in bf16, 2^-10 in fp16); two launches on the serve case give the
+   same bits;
    and the ragged kernel on a pack of one decode row per slot agrees with
    it within the same tolerance;
 11. card vs CPU for the bucketed engines: gpt2-small width, 2 layers, fp32,
@@ -492,11 +502,13 @@ def start_profile():
     return prof
 
 
-def report_profile(prof, n_steps, ticks_per_step=None):
+def report_profile(prof, n_steps, ticks_per_step=None, kernel=None):
     """Device time by kernel over the traced steps, and the device's busy
     share of their wall time (the profiler itself slows the host side).
     Where a step is a sync of several decode ticks, ``ticks_per_step``
-    adds the per-tick figures.  Returns the device's busy ms a step."""
+    adds the per-tick figures; ``kernel`` adds the ms a step of the device
+    kernels whose name contains it.  Returns the device's busy ms a
+    step."""
     from torch.autograd import DeviceType
 
     torch.cuda.synchronize()
@@ -516,6 +528,11 @@ def report_profile(prof, n_steps, ticks_per_step=None):
            f" = {busy_us / 1e3 / n_steps / ticks_per_step:.3f} ms and "
            f"{launches / n_steps / ticks_per_step:.0f} device kernels a "
            f"tick"))
+    if kernel is not None:
+        mine = [e for e in rows if kernel in e.key]
+        ms = sum(e.self_device_time_total for e in mine) / 1e3 / n_steps
+        say(f"  {kernel}*: {ms:.4f} ms/step in "
+            f"{sum(e.count for e in mine) / n_steps:.0f} launches/step")
     rows.sort(key=lambda e: -e.self_device_time_total)
     for e in rows[:12]:
         say(f"  {e.self_device_time_total / 1e3 / n_steps:8.4f} ms/step "
@@ -949,7 +966,9 @@ def say_flash(rows, shape, card, only=None):
 
 LN_SEED = 4321
 
-# (label, dtype, N, H, bias, dropout p, rout cotangent, eps)
+# (label, dtype, N, H, bias, dropout p, rout cotangent, eps[, offset]):
+# an offset views every (N, H) operand that many elements into its storage,
+# so no row pointer is 16-byte aligned and the kernels take the scalar path
 LN_CASES = [
     ("bf16 N8192 H768 bias", torch.bfloat16, 8192, 768, True, 0.0, False,
      1e-12),
@@ -967,14 +986,32 @@ LN_CASES = [
      0.1, True, 1e-12),
     ("fp32 N24 H100", torch.float32, 24, 100, False, 0.0, False, 1e-5),
     ("bf16 N24 H64", torch.bfloat16, 24, 64, False, 0.0, False, 1e-12),
+    # the persistent backward: fewer rows than its grid's warps (132 blocks
+    # of 16 warps), a row count no multiple of them, H 100 on the scalar
+    # path at many rows, misaligned operands, fp32 H 1024 (32 sums a lane
+    # in registers) and a row too wide for registers
+    ("bf16 N1000 H768 bias drout (fewer rows than warps)", torch.bfloat16,
+     1000, 768, True, 0.0, True, 1e-12),
+    ("bf16 N5000 H768 bias dropout 0.1 (not a multiple)", torch.bfloat16,
+     5000, 768, True, 0.1, False, 1e-12),
+    ("fp16 N4099 H100 bias drout (scalar)", torch.float16, 4099, 100, True,
+     0.0, True, 1e-5),
+    ("bf16 N3000 H768 bias drout, misaligned (scalar)", torch.bfloat16,
+     3000, 768, True, 0.0, True, 1e-12, 1),
+    ("fp32 N4096 H1024 bias drout", torch.float32, 4096, 1024, True, 0.0,
+     True, 1e-5),
+    ("bf16 N600 H2000 bias dropout 0.1 drout (wide)", torch.bfloat16, 600,
+     2000, True, 0.1, True, 1e-12),
 ]
 
 
-def ln_inputs(N, H, dtype, bias, seed):
-    """x, residual, dout, drout (N, H) in ``dtype``; fp32 w, b, bias (H,)."""
+def ln_inputs(N, H, dtype, bias, seed, offset=0):
+    """x, residual, dout, drout (N, H) in ``dtype``, each ``offset``
+    elements into its storage; fp32 w, b, bias (H,)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    x, res, dout, drout = (torch.randn(N, H, generator=g, device="cuda")
-                           .to(dtype) for _ in range(4))
+    x, res, dout, drout = (torch.randn(N * H + offset, generator=g,
+                                       device="cuda").to(dtype)[offset:]
+                           .view(N, H) for _ in range(4))
     w = torch.rand(H, generator=g, device="cuda") + 0.5
     b, bb = (0.1 * torch.randn(H, generator=g, device="cuda")
              for _ in range(2))
@@ -987,9 +1024,11 @@ def phase7():
     launch counts."""
     from paddle_tpu_torch.ops import fused as TF
 
-    for label, dt, N, H, bias, p, with_drout, eps in LN_CASES:
-        x, res, w, b, bb, dout, drout = ln_inputs(N, H, dt, bias, N + H)
-        leaves = [t.clone().requires_grad_() for t in (x, res, w, b)]
+    for label, dt, N, H, bias, p, with_drout, eps, *offset in LN_CASES:
+        x, res, w, b, bb, dout, drout = ln_inputs(N, H, dt, bias, N + H,
+                                                  *offset)
+        leaves = [x.detach().requires_grad_(), res.detach().requires_grad_()]
+        leaves += [t.clone().requires_grad_() for t in (w, b)]
         if bias:
             leaves.append(bb.clone().requires_grad_())
         out, rout = TF._FusedLN.apply(*leaves[:4], leaves[4] if bias else
@@ -1035,6 +1074,19 @@ def phase7():
             f"dx/dres/dw/db" + ("/dbias" if bias else "") + " err / max|grad| "
             + "/".join(f"{e:.3e}" for e in gerr) + f" (tol {GRAD_TOL[dt]})"
             + (f", keep pattern exact ({p})" if p > 0 else ""))
+    # two launches of the backward on the same inputs: the same bits (the
+    # column sums go through a fixed tree and a fixed-order sum)
+    x, res, w, b, bb, dout, drout = ln_inputs(8192, 768, torch.bfloat16,
+                                              True, seed=5)
+    _, rout, mu, rstd = TF.fused_ln_fwd_cuda(x, res, w, b, bb, LN_SEED, 0.1,
+                                             1e-12)
+    runs = [TF.fused_ln_bwd_cuda(dout, drout, rout, mu, rstd, w, LN_SEED,
+                                 0.1, True) for _ in range(2)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(u, v) for u, v in zip(*runs)),
+          "phase7: two fused_ln_bwd launches on the same inputs differ")
+    say("phase7 fused_ln_bwd launched twice on the same inputs (bf16 N8192 "
+        "H768 bias dropout 0.1 drout): dx, dres, dw, db, dbias bit-identical")
     TF.fused_adamw_flat_cuda.launches = 0
     adamw_check(BERT_PARAMS, torch.float32, 1e-6, "fp32")
     adamw_check(1_000_003, torch.bfloat16, 1e-2, "bf16 params, fp32 moments")
@@ -1143,31 +1195,43 @@ def phase8():
 
 # ------------------------------------------------------------- phase 9 --
 
-def phase9():
-    """The full-width BERT-base train with the fused LN; returns the LN
-    kernels' launches in the 10 timed steps."""
-    from paddle_tpu_torch.core.flags import set_flags
+BERT_B, BERT_L = 16, 512
+
+
+def bert_base_train():
+    """``bench.py``'s bert_base config on the card (bf16, seed 0) with its
+    train step, AdamW state and one batch from RandomState(0)."""
     from paddle_tpu_torch.models.bert import (BertConfig, BertModel,
                                               make_bert_train_step)
-    from paddle_tpu_torch.ops import attention as A
-    from paddle_tpu_torch.ops import fused as TF
     from paddle_tpu_torch.optimizer import AdamW
 
     cfg = BertConfig(vocab_size=30528, hidden_size=768, num_hidden_layers=12,
                      num_attention_heads=12, max_position_embeddings=512,
                      compute_dtype="bfloat16", scan_unroll=12)
-    Lyr, B, L = cfg.num_hidden_layers, 16, 512
     model = BertModel(cfg, device="cuda",
                       generator=torch.Generator("cuda").manual_seed(0))
-    n_params = sum(p.numel() for p in model.parameters())
-    check(n_params == BERT_PARAMS, f"phase9: {n_params} parameters, not "
-                                   f"{BERT_PARAMS}")
     step, state = make_bert_train_step(model, AdamW(1e-4, weight_decay=0.01),
                                        remat=False)
     rng = np.random.RandomState(0)
     batch = [torch.from_numpy(a).cuda() for a in (
-        rng.randint(0, cfg.vocab_size, (B, L)),
-        rng.randint(0, cfg.vocab_size, (B, L)), rng.randint(0, 2, (B,)))]
+        rng.randint(0, cfg.vocab_size, (BERT_B, BERT_L)),
+        rng.randint(0, cfg.vocab_size, (BERT_B, BERT_L)),
+        rng.randint(0, 2, (BERT_B,)))]
+    return cfg, model, step, state, batch
+
+
+def phase9():
+    """The full-width BERT-base train with the fused LN; returns the LN
+    kernels' launches in the 10 timed steps."""
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.ops import fused as TF
+
+    cfg, model, step, state, batch = bert_base_train()
+    Lyr, B, L = cfg.num_hidden_layers, BERT_B, BERT_L
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == BERT_PARAMS, f"phase9: {n_params} parameters, not "
+                                   f"{BERT_PARAMS}")
     losses = []
 
     def run(n):
@@ -1195,7 +1259,7 @@ def phase9():
     say("phase9 profile, fused LN on:")
     prof = start_profile()
     run(3)
-    busy = report_profile(prof, 3)
+    busy = report_profile(prof, 3, kernel="ln_bwd_kernel")
     wall, ln_launches, flash_launches = timed(10)
     peak = torch.cuda.max_memory_allocated() / 2**30
     vals = [v.item() for v in losses]
@@ -1270,14 +1334,25 @@ DECODE_CASES = [
     ("fp32 hd128 bs32 C4 no pads", torch.float32, 128, 6, 32, 4, False),
     ("bf16 hd128 bs16 C8", torch.bfloat16, 128, 6, 16, 8, True),
     ("fp16 hd128 bs4 C32", torch.float16, 128, 3, 4, 32, True),
+    # the tiled kernel: a tile of 16 positions spans 4 pool blocks at the
+    # serve's nh; fp32 hd 128 at the serve's nh (4-position tiles)
+    ("bf16 hd64 nh12 bs4 C40", torch.bfloat16, 64, 12, 4, 40, True),
+    ("fp32 hd128 nh12 bs32 C20", torch.float32, 128, 12, 32, 20, True),
 ]
 
+# slots whose [pad, t] leave whole tiles skipped at both ends, at the serve
+# shape: (clock, pad) a slot
+SKIP_SLOTS = [(300, 100), (639, 200), (47, 33), (450, 17), (16, 15),
+              (17, 16), (500, 480), (200, 0)]
 
-def make_decode_case(dtype, hd, nh, bs, C, padded, seed, clocks=None):
+
+def make_decode_case(dtype, hd, nh, bs, C, padded, seed, clocks=None,
+                     pads=None):
     """One decode tick's operands for S 8 slots.  Without ``clocks`` the
     slots are the edge cases: clock 0, clock C*bs - 1, an all-trash table
     row, a parked clock past the table, a row with nothing to attend
-    (pad > t, only with ``padded``) and three ordinary ones."""
+    (pad > t, only with ``padded``) and three ordinary ones.  With
+    ``clocks`` the pads are ``pads``, or clock // 7."""
     dev = torch.device("cuda")
     S = 8
     NB1 = S * C + 1
@@ -1295,7 +1370,7 @@ def make_decode_case(dtype, hd, nh, bs, C, padded, seed, clocks=None):
         table[2] = 0                                   # an inactive slot
         if padded:
             pads[6], empty = 5, [6]                    # pad 5 > clock 1
-    else:
+    elif pads is None:
         pads = [c // 7 for c in clocks]
     q = torch.randn(S, nh, hd, generator=g, device=dev).to(dtype)
     i32 = dict(dtype=torch.int32, device=dev)
@@ -1350,11 +1425,26 @@ def compare_decode(c, label):
 
 
 def phase10():
-    """Every decode case; returns the serve-shape case's max abs error."""
+    """Every decode case, the skipped-tile slots, and two launches on the
+    same inputs; returns the serve-shape case's max abs error."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+
     errs = [compare_decode(make_decode_case(dt, hd, nh, bs, C, padded,
                                             seed=20 + i), label)
             for i, (label, dt, hd, nh, bs, C, padded)
             in enumerate(DECODE_CASES)]
+    clocks, pads = zip(*SKIP_SLOTS)
+    compare_decode(make_decode_case(torch.bfloat16, 64, 12, 32, 20, True,
+                                    seed=39, clocks=list(clocks),
+                                    pads=list(pads)),
+                   "bf16 hd64 bs32 C20, whole tiles skipped at both ends")
+    c = serve_decode_case()
+    runs = [pa.paged_decode_attention_cuda(*decode_args(c)) for _ in range(2)]
+    torch.cuda.synchronize()
+    check(torch.equal(*runs), "phase10: two paged kernel launches on the "
+                              "same inputs differ")
+    say("phase10 paged_decode_attention launched twice on the serve case: "
+        "bit-identical")
     return errs[0]
 
 
@@ -1391,16 +1481,24 @@ def time_decode(c):
         lambda: F.scaled_dot_product_attention(qs, k, v, attn_mask=mask))
     gather_ms = time_cold_ms(lambda: F.scaled_dot_product_attention(
         qs, dense(c["pk"]), dense(c["pv"]), attn_mask=mask))
-    # bytes: the K and V positions each slot attends, q and out, the table
-    # and the two clock vectors; 4·nh·hd flops a position
-    positions = sum(min(t, C * bs - 1) - p + 1
+    return (ms, plain_ms, library_ms, gather_ms, *decode_bound(c))
+
+
+def decode_bound(c):
+    """(ms, "bytes"|"operations") of one decode tick's attention: the K and
+    V positions each slot attends, q and out, the table and the two clock
+    vectors; 4·nh·hd flops a position."""
+    q, table = c["q"], c["table"]
+    S, nh, hd = q.shape
+    C, bs = table.shape[1], c["pk"].shape[1]
+    positions = sum(max(min(t, C * bs - 1) - p + 1, 0)
                     for t, p in zip(c["clocks"], c["pads"]))
     el = q.element_size()
     nbytes = (2 * positions * nh * hd * el + 2 * q.numel() * el
               + 4 * (table.numel() + 2 * S))
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = 4 * nh * hd * positions / PEAK_FLOPS[q.dtype]
-    return (ms, plain_ms, library_ms, gather_ms, max(t_bytes, t_ops) * 1e3,
+    return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1527,7 +1625,7 @@ def bench_requests(vocab):
     return list(zip(prompts, [64, 128, 256, 512] * 6))
 
 
-def serve_upfront(eng, reqs, profile_steps=None):
+def serve_upfront(eng, reqs, profile_steps=None, kernel=None):
     """Queue every request, then step to quiescence; returns (wall s,
     {rid: tokens}, {rid: budget}).  ``profile_steps=(a, b)`` traces
     scheduler rounds [a, b), one decode sync each, and abandons the serve
@@ -1543,28 +1641,27 @@ def serve_upfront(eng, reqs, profile_steps=None):
         step += 1
         if prof is not None and step == profile_steps[1]:
             report_profile(prof, step - profile_steps[0],
-                           eng.ticks_per_sync)
+                           eng.ticks_per_sync, kernel)
             prof = None
     torch.cuda.synchronize()
     return time.perf_counter() - t0, eng.pop_finished(), budgets
 
 
-def phase12():
-    """The bucketed paged serve at full width; returns the paged kernel's
-    launches in the measured serve."""
+SERVE_SLOTS, SERVE_TICKS, SERVE_BUCKET, SERVE_BLOCK = 8, 8, 128, 32
+
+
+def bucketed_serve():
+    """The phase-12 gpt2-small model (bf16, seed 0), its requests, the
+    engines' max_len and a factory of the paged engine at its settings."""
     from paddle_tpu_torch.models.gpt import GPTModel, gpt_preset
-    from paddle_tpu_torch.ops import attention as A
-    from paddle_tpu_torch.ops import paged_attention as pa
-    from paddle_tpu_torch.serving import ContinuousBatchingEngine
     from paddle_tpu_torch.serving_paged import PagedContinuousBatchingEngine
 
     cfg = gpt_preset("gpt2-small", vocab_size=50304,
                      max_position_embeddings=1024, compute_dtype="bfloat16")
-    L, S, k, P, blk = cfg.num_layers, 8, 8, 128, 32
+    S, k, P, blk = SERVE_SLOTS, SERVE_TICKS, SERVE_BUCKET, SERVE_BLOCK
     model = GPTModel(cfg, device="cuda",
                      generator=torch.Generator("cuda").manual_seed(0))
     reqs = bench_requests(cfg.vocab_size)
-    total = sum(n for _, n in reqs)
     max_len = P + -(-max(n for _, n in reqs) // k) * k
     max_len = -(-max_len // blk) * blk
 
@@ -1572,6 +1669,20 @@ def phase12():
         return PagedContinuousBatchingEngine(
             model, max_slots=S, max_len=max_len, block_size=blk,
             prompt_buckets=[P], ticks_per_sync=k, device="cuda")
+    return model, reqs, max_len, paged
+
+
+def phase12():
+    """The bucketed paged serve at full width; returns the paged kernel's
+    launches in the measured serve."""
+    from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+
+    model, reqs, max_len, paged = bucketed_serve()
+    L, S, k, P, blk = (model.config.num_layers, SERVE_SLOTS, SERVE_TICKS,
+                       SERVE_BUCKET, SERVE_BLOCK)
+    total = sum(n for _, n in reqs)
 
     def check_budgets(label, got, budgets):
         check(sorted(got) == sorted(budgets), f"{label}: requests missing")
@@ -1583,7 +1694,8 @@ def phase12():
     # them traced by torch.profiler (each round here is one sync of 8
     # ticks, plus any admissions)
     say("phase12 profile, 20 syncs of 8 ticks (a step is a sync):")
-    serve_upfront(paged(), reqs, profile_steps=(40, 60))
+    serve_upfront(paged(), reqs, profile_steps=(40, 60),
+                  kernel="paged_decode")
     pa.paged_decode_attention_cuda.launches = 0   # the measured main path
     A.flash_fwd_cuda.launches = 0
     eng = paged()
@@ -1763,9 +1875,13 @@ def demangle(symbol):
 
 
 def say_shared_memory():
-    """The dynamic shared memory a block of each 16-bit flash kernel and of
-    the ragged tile kernel takes (ptxas reports static memory only)."""
+    """The dynamic shared memory a block of each 16-bit flash kernel, of
+    the ragged tile kernel, of the paged decode tile kernel and of the LN
+    backward takes (ptxas reports static memory only)."""
+    import ctypes
+
     from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import paged_attention as pa
 
     fa = _build.load_library("flash_attention")
     ra = _build.load_library("ragged_paged_attention")
@@ -1777,6 +1893,46 @@ def say_shared_memory():
         say(f"  shared memory at hd {hd} (bytes a block): {flash}; "
             f"ragged_tiles 16-bit q {ra.ragged_smem_bytes(2, hd)}, fp32 q "
             f"{ra.ragged_smem_bytes(0, hd)}")
+    pd = _build.load_library("paged_attention")
+    for label, dtype, nh, hd, el in (
+            ("bf16 nh 12 hd 64 (the serve)", 2, 12, 64, 2),
+            ("fp32 nh 12 hd 128", 0, 12, 128, 4)):
+        tile = pa.decode_tile_positions(nh, hd, el)
+        say(f"  paged_decode_attention_kernel at {label}: {tile}-position "
+            f"tiles, {pd.paged_decode_smem_bytes(dtype, hd, nh, tile)} bytes "
+            f"a block")
+    fu = _build.load_library("fused")
+    for label, dtype, H, vec in (("bf16 H 768 (BERT)", 2, 768, 1),
+                                 ("fp32 H 768", 0, 768, 1),
+                                 ("fp32 H 1024", 0, 1024, 1),
+                                 ("bf16 H 768 scalar", 2, 768, 0),
+                                 ("bf16 H 2000", 2, 2000, 1)):
+        shape = (ctypes.c_int * 3)()
+        check(fu.fused_ln_bwd_shape(dtype, H, vec, shape) == 0,
+              "fused_ln_bwd_shape failed")
+        sums = (f"{shape[2]} chunks a lane in registers" if shape[2] else
+                "sums in shared memory")
+        say(f"  ln_bwd_kernel at {label}: {shape[0]} warps, {shape[1]} bytes "
+            f"a block, {sums}")
+
+
+def phase0():
+    """Build every kernel library (one nvcc a source, all at once) and
+    print ptxas's registers, spills and static shared memory a kernel, then
+    the dynamic shared memory of the kernels that size it at launch."""
+    from paddle_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    logs = _build.build_all(verbose=True)
+    say(f"phase0 build: {sorted(logs) or 'cached'} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                say(f"  ptxas {name}: {demangle(line.split(chr(39))[1])}")
+            elif "registers" in line or "spill" in line:
+                say(f"  ptxas {name}:   {line.strip()}")
+    say_shared_memory()
 
 
 def card_line():
@@ -1803,17 +1959,7 @@ def main():
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
-    t0 = time.perf_counter()
-    logs = _build.build_all(verbose=True)
-    say(f"phase0 build: {sorted(logs) or 'cached'} in "
-        f"{time.perf_counter() - t0:.1f} s")
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "Compiling entry function" in line:
-                say(f"  ptxas {name}: {demangle(line.split(chr(39))[1])}")
-            elif "registers" in line or "spill" in line:
-                say(f"  ptxas {name}:   {line.strip()}")
-    say_shared_memory()
+    phase0()
 
     main_pack, err, int8_pack, decode_pack = phase1()
 

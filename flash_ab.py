@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Time two builds of the port's attention kernels against each other on
+"""Time two builds of the port's kernels against each other on
 one card, in turns.
 
     git show <rev>:paddle_tpu_torch/csrc/flash_attention.cu > .scratch/fa.cu
     git show <rev>:paddle_tpu_torch/csrc/ragged_paged_attention.cu \\
         > .scratch/rpa.cu
     python3 flash_ab.py .scratch/fa.cu --ragged .scratch/rpa.cu
+    python3 flash_ab.py --paged .scratch/pa.cu --fused .scratch/fused.cu
 
 Builds each given source (with the checkout's ``csrc`` headers and
 ``_build``'s flags) into a throwaway library beside it, and the checkout's
@@ -26,6 +27,19 @@ before every launch) in the order old, new, new, old:
   step untraced in three rounds, and 20 steps traced by
   ``torch.profiler`` (device busy a step and the kernels by time).
 
+- paged (``--paged``, a ``paged_attention.cu`` whose C interface takes
+  no workspace, as the per-(slot, head) kernel's did):
+  ``paged_decode_attention`` at the phase-12 decode shape (S 8, nh 12, hd
+  64, bs 32, C 20, clocks 128-639, bf16), then the phase-12 serve with
+  each build in the order old, new, new, old, its syncs 40-59 traced
+  (device busy a sync and the paged kernel's ms a sync);
+- fused (``--fused``, a ``fused.cu`` whose ``fused_ln_bwd`` takes no grid,
+  as the 16-rows-a-block kernel's did): ``fused_ln_bwd`` with the PyTorch
+  sum of its partials, and the kernel alone, at BERT's LN shape (N 8192,
+  H 768, bf16, bias, rout cotangent); then the phase-9 BERT step with
+  each build in turns, 3 steps traced a turn (device busy a step and the
+  LN backward kernel's ms a step).
+
 Prints one line a kernel and shape, the card's ``nvidia-smi`` name and
 power limit first.  Needs a CUDA card.
 """
@@ -43,6 +57,8 @@ import torch
 import chip_smoke as cs
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import attention as A
+from paddle_tpu_torch.ops import fused as TF
+from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops import ragged_paged_attention as rpa
 
 SHAPES = [("phase-6", 16, 1024, True), ("phase-9", 16, 512, False),
@@ -244,23 +260,162 @@ def ab_ragged_serve(old, card):
            f"{np.median(walls['new']):.3f})")
 
 
+def old_paged_call(lib):
+    """The old build's ``paged_decode_attention`` (no workspace, no tile)
+    with ``paged_decode_attention_cuda``'s arguments and checks."""
+    fn = lib.paged_decode_attention
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
+                   + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+    def call(q, pk, pv, table, t, pad_lens=None):
+        pa._check_kernel_args(q, pk, pv, table, t, pad_lens)
+        S, nh, hd = q.shape
+        out = torch.empty_like(q)
+        rc = fn(pa._DTYPE_CODE[q.dtype], hd, q.data_ptr(), pk.data_ptr(),
+                pv.data_ptr(), table.data_ptr(), t.data_ptr(),
+                None if pad_lens is None else pad_lens.data_ptr(),
+                out.data_ptr(), S, nh, pk.shape[1], table.shape[1],
+                1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
+        cs.check(rc == 0, f"old paged kernel launch failed ({rc})")
+        return out
+    return call
+
+
+def ab_paged(src, card):
+    old = old_paged_call(build_old(src))
+    new = pa.paged_decode_attention_cuda
+    c = cs.serve_decode_case()
+    args = cs.decode_args(c)
+    want = pa.paged_decode_attention_ref(*args).float()
+    builds = {"old": lambda: old(*args), "new": lambda: new(*args)}
+    for name, fn in builds.items():                    # both right first
+        err = (fn().float() - want).abs().max().item()
+        cs.check(err <= 2e-5 + 2.0 ** -7 * want.abs().max().item(),
+                 f"{name} paged build disagrees: {err}")
+    current = {}
+    say_ab("paged_decode_attention at the phase-12 decode shape (S 8, nh 12, "
+           "hd 64, bs 32, C 20, clocks 128-639, bf16)",
+           in_turns(builds, lambda b: current.update(fn=b),
+                    lambda: current["fn"]()), card, bound=cs.decode_bound(c))
+    cs.say(f"ab paged host time a call: old {host_us(builds['old']):.1f} us, "
+           f"new {host_us(builds['new']):.1f} us")
+    model, reqs, _, paged = cs.bucketed_serve()
+    cs.serve_upfront(paged(), [(p, 16) for p, _ in reqs[:8]])  # warm-up
+    for turn in TURNS:
+        pa.paged_decode_attention_cuda = old if turn == "old" else new
+        cs.say(f"ab serve, {turn} paged kernel, on {card}, syncs 40-59 "
+               f"traced:")
+        cs.serve_upfront(paged(), reqs, profile_steps=(40, 60),
+                         kernel="paged_decode")
+    pa.paged_decode_attention_cuda = new
+
+
+def old_ln_bwd(lib):
+    """The old build's ``fused_ln_bwd`` (no grid argument; one partial row
+    a ``fused_ln_bwd_rows()`` rows) as ``fused_ln_bwd_cuda`` was: the
+    kernel, then one PyTorch sum of its partials; ``partials_only`` stops
+    after the kernel."""
+    fn = lib.fused_ln_bwd
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+                   + [ctypes.c_int] * 3 + [ctypes.c_uint32] * 2
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    rows = lib.fused_ln_bwd_rows()
+
+    def call(dout, drout, rout, mu, rstd, w, seed, dropout_p, has_bias,
+             partials_only=False):
+        drop, mixed, thresh, keep_div = TF._dropout_args(seed, dropout_p)
+        N, H = TF._check_rows("old fused_ln_bwd", dout,
+                              (rout,) if drout is None else (rout, drout),
+                              (w,), (mu, rstd))
+        w32 = TF._f32_vec(w)
+        dx, dres = torch.empty_like(dout), torch.empty_like(dout)
+        part = torch.empty(-(-N // rows), 3, H, dtype=torch.float32,
+                           device=dout.device)
+        rc = fn(TF._DTYPE_CODE[dout.dtype], dout.data_ptr(), TF._ptr(drout),
+                rout.data_ptr(), mu.data_ptr(), rstd.data_ptr(),
+                w32.data_ptr(), dx.data_ptr(), dres.data_ptr(),
+                part.data_ptr(), N, H, drop, mixed, thresh, keep_div,
+                torch.cuda.current_stream().cuda_stream)
+        cs.check(rc == 0, f"old fused_ln_bwd launch failed ({rc})")
+        if partials_only:
+            return dx, dres, part
+        dw, db, dbias = part.sum(0).unbind(0)
+        return dx, dres, dw, db, dbias if has_bias else None
+    return call
+
+
+def ab_fused(src, card):
+    old = old_ln_bwd(build_old(src))
+    new = TF.fused_ln_bwd_cuda
+    N, H, dt = 8192, 768, torch.bfloat16
+    x, res, w, b, bb, dout, drout = cs.ln_inputs(N, H, dt, True, seed=11)
+    _, rout, mu, rstd = TF.fused_ln_fwd_cuda(x, res, w, b, bb, 0, 0.0, 1e-12)
+    bwd = (dout, drout, rout, mu, rstd, w, 0, 0.0, True)
+    want = TF.ln_bwd_ref(*bwd)
+    builds = {"old": lambda: old(*bwd), "new": lambda: new(*bwd)}
+    for name, fn in builds.items():                    # both right first
+        errs = [cs.rel_err(a, c) for a, c in zip(fn(), want)]
+        cs.check(max(errs) <= cs.GRAD_TOL[dt],
+                 f"{name} fused_ln_bwd build disagrees: {errs}")
+    label = ("fused_ln_bwd at BERT's LN shape (N 8192, H 768, bf16, bias, "
+             "rout cotangent)")
+    bound = cs.bytes_ops_bound(5 * N * H * 2 + 2 * N * 4 + 4 * H * 4,
+                               15 * N * H)
+    current = {}
+    use = lambda b: current.update(fn=b)
+    say_ab(f"{label}, kernel and sum", in_turns(
+        builds, use, lambda: current["fn"]()), card, bound=bound)
+    alone = {"old": lambda: old(*bwd, partials_only=True),
+             "new": lambda: TF.ln_bwd_partials_cuda(*bwd[:-1])}
+    say_ab(f"{label}, kernel alone", in_turns(
+        alone, use, lambda: current["fn"]()), card, bound=bound)
+    from paddle_tpu_torch.core.flags import set_flags
+
+    set_flags({"FLAGS_use_fused_ln": True})
+    _, _, step, state, batch = cs.bert_base_train()
+    for _ in range(3):                                  # warm-up
+        state, _ = step(state, 1e-4, *batch)
+    for turn in TURNS:
+        TF.fused_ln_bwd_cuda = old if turn == "old" else new
+        state, _ = step(state, 1e-4, *batch)
+        cs.say(f"ab BERT step, {turn} LN backward, on {card}, 3 steps "
+               f"traced:")
+        prof = cs.start_profile()
+        for _ in range(3):
+            state, loss = step(state, 1e-4, *batch)
+        cs.report_profile(prof, 3, kernel="ln_bwd_kernel")
+        cs.check(math.isfinite(loss.item()), "ab BERT step: non-finite loss")
+    TF.fused_ln_bwd_cuda = new
+    set_flags({"FLAGS_use_fused_ln": False})
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("flash", nargs="?", type=Path,
                     help="an old flash_attention.cu")
     ap.add_argument("--ragged", type=Path,
                     help="an old ragged_paged_attention.cu")
+    ap.add_argument("--paged", type=Path, help="an old paged_attention.cu")
+    ap.add_argument("--fused", type=Path, help="an old fused.cu")
     opts = ap.parse_args()
     cs.check(torch.cuda.is_available(), "needs a CUDA card")
-    cs.check(opts.flash is not None or opts.ragged is not None,
-             "give an old flash source, --ragged OLD, or both")
+    cs.check(any(x is not None for x in (opts.flash, opts.ragged, opts.paged,
+                                         opts.fused)),
+             "give an old flash source, --ragged OLD, --paged OLD or "
+             "--fused OLD")
     card = cs.card_line()
     cs.say(f"card: {card}")
-    _build.build_all(["flash_attention", "ragged_paged_attention"])
+    _build.build_all()
     if opts.flash is not None:
         ab_flash(opts.flash, card)
     if opts.ragged is not None:
         ab_ragged(opts.ragged, card)
+    if opts.paged is not None:
+        ab_paged(opts.paged, card)
+    if opts.fused is not None:
+        ab_fused(opts.fused, card)
 
 
 if __name__ == "__main__":

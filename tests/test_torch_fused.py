@@ -385,6 +385,55 @@ class TestKernelWrappers:
                 TF.fused_adamw_flat_cuda.launches) == before
 
 
+class TestPersistentBackwardGrid:
+    """The LN backward's persistent grid, sized on the host: at most one
+    block of 16 warps a streaming multiprocessor, as few blocks as give
+    every warp the same row count, its partials one row a block."""
+
+    @pytest.mark.parametrize("N,sms,blocks", [
+        (8192, 132, 128), (5000, 132, 105), (1000, 132, 63), (24, 132, 2),
+        (1, 132, 1), (200, 16, 13), (8192, 114, 103)])
+    def test_blocks(self, N, sms, blocks):
+        assert TF.ln_bwd_blocks(N, sms) == blocks
+
+    @pytest.mark.parametrize("N,warps", [(8192, 16), (1000, 16), (24, 16),
+                                         (4099, 8), (37, 1)])
+    def test_walk_covers_every_row_once_and_sums_in_order(self, N, warps):
+        """Warp w of block b takes rows b * W + w + k * blocks * W (the
+        kernel's walk); per-block partials added in block order give the
+        plain version's column sums."""
+        blocks = TF.ln_bwd_blocks(N, 132)
+        seen = np.zeros(N, np.int64)
+        rs = np.random.RandomState(N)
+        d = torch.tensor(rs.randn(N, 8).astype(np.float32))
+        part = torch.zeros(blocks, 8)
+        for b in range(blocks):
+            for w in range(warps):
+                rows = np.arange(b * warps + w, N, blocks * warps)
+                seen[rows] += 1
+                part[b] += d[rows].sum(0)
+        assert (seen == 1).all()
+        np.testing.assert_allclose(part.sum(0).numpy(), d.sum(0).numpy(),
+                                   rtol=1e-5, atol=1e-5)
+
+    def test_c_interface_matches_argtypes(self):
+        """fused_ln_bwd's extern "C" signature takes the grid, and its
+        parameter count is the wrapper's."""
+        import re
+        from paddle_tpu_torch.ops import _build
+        text = (_build.CSRC / _build.SOURCES["fused"]).read_text()
+        sig = re.search(r'extern "C" int fused_ln_bwd\((.*?)\)', text,
+                        re.S).group(1)
+        assert len(sig.split(",")) == len(TF._ARGTYPES["fused_ln_bwd"])
+        assert "int N, int H, int blocks," in " ".join(sig.split())
+
+    def test_partials_refuse_cpu_before_sizing(self):
+        rows, stats = torch.zeros(16, 64), torch.zeros(16)
+        with pytest.raises(ValueError, match="CUDA"):
+            TF.ln_bwd_partials_cuda(rows, None, rows, stats, stats,
+                                    torch.ones(64), 0, 0.0)
+
+
 # ---------------------------------------------------------------- flags --
 
 class TestFlags:

@@ -102,6 +102,147 @@ class TestPlainVersionParity:
         assert len(calls) == 1
 
 
+def _merge(ms, ls, accs):
+    """The kernel's merge of partials (m, l, acc) in order, in batches of
+    ``_MERGE_GROUP``: a running max, each batch's weights exp(m - max) side
+    by side; a partial with m = -inf (no position) weighs 0 and an all-empty
+    row stays (-inf, 0, 0) with no NaN."""
+    G = tpa._MERGE_GROUP
+    m_run = torch.full(ms[0].shape, -np.inf)
+    l_run = torch.zeros(ls[0].shape)
+    o = torch.zeros(accs[0].shape)
+    for i0 in range(0, len(ms), G):
+        batch = range(i0, min(i0 + G, len(ms)))
+        m_new = torch.stack([m_run] + [ms[i] for i in batch]).amax(0)
+        safe = torch.where(torch.isinf(m_new), 0.0, m_new)
+        sa = torch.where(torch.isinf(m_run), 0.0, torch.exp(m_run - safe))
+        l_run, o = l_run * sa, o * sa[..., None]
+        for i in batch:
+            w = torch.where(torch.isinf(ms[i]), 0.0, torch.exp(ms[i] - safe))
+            l_run = l_run + w * ls[i]
+            o = o + w[..., None] * accs[i]
+        m_run = m_new
+    return m_run, l_run, o
+
+
+def _split_combine(q, pk, pv, table, t, pad, tile):
+    """A plain version of the CUDA kernel's split (``csrc/
+    paged_attention.cu``): every tile of ``tile`` table positions gives,
+    per head, a partial (m, l, acc) over its positions in [pad, min(t, C*bs
+    - 1)], with m = -inf, l = 0, acc = 0 for a tile that has none (the
+    kernel skips those); groups of ``_MERGE_GROUP`` consecutive tiles merge
+    in order, then the groups in order; a row with no position at all gives
+    zeros.  Torch CPU tensors in, fp32 out."""
+    S, nh, hd = q.shape
+    C, bs = table.shape[1], pk.shape[1]
+    n = tpa.decode_tiles(C, bs, tile)
+    P = n * tile
+    k = torch.zeros(S, P, nh, hd)
+    v = torch.zeros(S, P, nh, hd)
+    k[:, :C * bs] = pk[table.long()].reshape(S, C * bs, nh, hd).float()
+    v[:, :C * bs] = pv[table.long()].reshape(S, C * bs, nh, hd).float()
+    sc = torch.einsum("shd,sphd->shp", q.float() / np.sqrt(hd), k)
+    pos = torch.arange(P)
+    first = torch.zeros(S, dtype=torch.long) if pad is None else pad.long()
+    last = t.long().clamp(max=C * bs - 1)
+    valid = (pos[None] >= first[:, None]) & (pos[None] <= last[:, None])
+    sc = torch.where(valid[:, None], sc, torch.tensor(-np.inf))
+    sc = sc.reshape(S, nh, n, tile)
+    m = sc.amax(-1)                                     # (S, nh, n)
+    empty = torch.isinf(m)
+    w = torch.where(empty[..., None], torch.zeros(()),
+                    torch.exp(sc - torch.where(empty, 0.0, m)[..., None]))
+    parts = [(m[..., j], w[..., j, :].sum(-1), torch.einsum(
+        "sht,sthd->shd", w[..., j, :], v[:, j * tile:(j + 1) * tile]))
+        for j in range(n)]
+    G = tpa._MERGE_GROUP
+    groups = [_merge(*zip(*parts[g:g + G])) for g in range(0, n, G)]
+    m_all, l_all, o = _merge(*zip(*groups))
+    return torch.where(torch.isinf(m_all)[..., None], torch.zeros(()),
+                       o / torch.where(l_all > 0, l_all, 1.0)[..., None])
+
+
+class TestTiledSplitCombine:
+    """The kernel's split of a slot's positions into tiles and their
+    combine, as plain PyTorch on the CPU, against the Pallas kernel in
+    interpret mode: tiles wholly outside [pad, t] (m = -inf, l = 0) must
+    weigh nothing and make no NaN."""
+
+    @pytest.mark.parametrize("tile", [1, 4, 8, 16])
+    @pytest.mark.parametrize("seed", [0, 3])
+    def test_matches_pallas_kernel(self, tile, seed):
+        case = _case(seed, C=5, bs=8)
+        q, pk, pv, table, t, pad = (torch.from_numpy(a) for a in case)
+        got = _split_combine(q, pk, pv, table, t, pad, tile)
+        kern = _three_ways(*case)[0]
+        assert torch.isfinite(got).all()
+        np.testing.assert_allclose(got.numpy(), kern, **TOL)
+
+    @pytest.mark.parametrize("bs,tile", [(3, 16), (4, 16), (32, 4), (5, 8)])
+    def test_tiles_skipped_at_both_ends(self, bs, tile):
+        """Pads and clocks that leave whole tiles empty on both sides, a
+        tile spanning several pool blocks (bs < tile), a parked clock past
+        the table, and a row with no position (zeros)."""
+        C = -(-6 * tile // bs)                           # >= 6 tiles
+        q, pk, pv, table, _, _ = _case(9, S=4, C=C, bs=bs)
+        full = C * bs
+        t = np.asarray([full - tile - 2, full + bs, 2 * tile + 1, 1],
+                       np.int32)
+        pad = np.asarray([tile + 1, 2 * tile, tile + 1, 3], np.int32)
+        got = _split_combine(*(torch.from_numpy(a) for a in (
+            q, pk, pv, table, t, pad)), tile)
+        kern = _three_ways(q, pk, pv, table, t, pad)[0]
+        assert torch.isfinite(got).all()
+        np.testing.assert_allclose(got[:3].numpy(), kern[:3], **TOL)
+        assert got[3].abs().max() == 0                   # pad 3 > clock 1
+
+    def test_matches_plain_version(self):
+        q, pk, pv, table, t, pad = (torch.from_numpy(a)
+                                    for a in _case(4, C=6, bs=4))
+        want = tpa.paged_decode_attention_ref(q, pk, pv, table, t, pad)
+        got = _split_combine(q, pk, pv, table, t, pad,
+                             tpa.decode_tile_positions(4, 16, 4))
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+class TestTileSizing:
+    """The wrapper's host-side sizing of the kernel's tiles, shared
+    memory and workspace."""
+
+    @pytest.mark.parametrize("nh,hd,el,tile", [
+        (12, 64, 2, 16),            # the gpt2-small serve: half a block
+        (12, 128, 4, 4),            # fp32 hd 128: 48 KB of K and V
+        (12, 64, 4, 8),
+        (4, 16, 4, 16),
+        (64, 128, 4, 1),
+    ])
+    def test_tile_positions(self, nh, hd, el, tile):
+        assert tpa.decode_tile_positions(nh, hd, el) == tile
+        assert 2 * tile * nh * hd * el <= tpa._TILE_KV_BYTES or tile == 1
+
+    def test_tiles_and_workspace(self):
+        assert tpa.decode_tiles(20, 32, 16) == 40
+        assert tpa.decode_tiles(7, 5, 8) == 5             # 35 positions
+        part, tickets = tpa.decode_workspace_sizes(8, 20, 32, 12, 64, 16)
+        assert (part, tickets) == (8 * (40 + 5) * 12 * 66, 8 * (1 + 5))
+
+    def test_workspace_is_kept_and_grown(self):
+        dev = torch.device("cpu")
+        key = object()                       # a stream no launch uses
+        try:
+            part, tickets = tpa._workspace(dev, key, 100, 4)
+            assert part.dtype == torch.float32 and part.numel() == 100
+            assert tickets.dtype == torch.int32 and not tickets.any()
+            again = tpa._workspace(dev, key, 50, 2)
+            assert again[0] is part and again[1] is tickets
+            tickets[0] = 3                   # a launch leaves them zero
+            grown = tpa._workspace(dev, key, 200, 8)
+            assert grown[0].numel() == 200 and grown[1] is not tickets
+            assert not grown[1].any()
+        finally:
+            tpa._workspaces.pop((dev, key), None)
+
+
 def _pools(seed, quantized, L=None, NB1=9, bs=4, nh=2, hd=8):
     rng = np.random.RandomState(seed)
     shape = (NB1, bs, nh, hd) if L is None else (L, NB1, bs, nh, hd)
@@ -253,6 +394,23 @@ class TestKernelWrapperGuards:
             tpa._check_kernel_args(q, pk, pv[:2], tab, t, pad)
         with pytest.raises(ValueError, match=r"\(5,\)"):
             tpa._check_kernel_args(q, pk, pv, tab, t[:4], pad)
+
+    def test_pools_misaligned_refused(self):
+        q, pk, pv, tab, t, pad = self._args()
+        flat = torch.zeros(pk.numel() + 1, dtype=pk.dtype)
+        shifted = flat[1:].view(pk.shape)                # 2 bytes in
+        with pytest.raises(ValueError, match="16-byte"):
+            tpa._check_kernel_args(q, shifted, pv, tab, t, pad)
+
+    def test_c_interface_matches_argtypes(self):
+        """The extern "C" signature's parameter count is the wrapper's."""
+        import re
+        from paddle_tpu_torch.ops import _build
+        text = (_build.CSRC / _build.SOURCES["paged_attention"]).read_text()
+        sig = re.search(r'extern "C" int paged_decode_attention\((.*?)\)',
+                        text, re.S).group(1)
+        assert len(sig.split(",")) == len(tpa._ARGTYPES)
+        assert "void* part, void* tickets" in " ".join(sig.split())
 
     def test_build_table_names_the_kernel_source(self):
         from paddle_tpu_torch.ops import _build
