@@ -5,6 +5,12 @@ the GPU.
 
     python3 chip_smoke.py
 
+Every serving engine runs its steps as CUDA graph replays (the port's
+default; ``paddle_tpu_torch/jit/programs.py``).  A phase that times or
+counts a serve first calls the engine's ``warmup()`` (every graph captured
+before the serve) and then zeroes the kernels' launch counts, which count
+each replay's launches.
+
 Phases (any failure exits non-zero before the result lines):
 
 0. build every CUDA kernel of the ported paths from ``paddle_tpu_torch/csrc``
@@ -32,7 +38,8 @@ Phases (any failure exits non-zero before the result lines):
    every request gets exactly its tokens, the allocator balances, and the
    kernel launched exactly 12 times per ragged step.  A warm-up serve of
    the same traffic traces 20 mid-run steps with ``torch.profiler`` and
-   prints device time by kernel and the device's busy share.
+   prints device time by kernel and the device's busy share (graph
+   replays show their kernels one by one).
 
 4. flash kernels vs plain versions on the card: ``flash_fwd``,
    ``flash_bwd_dq`` and ``flash_bwd_dkv`` (through ``_FlashAttention``'s
@@ -144,7 +151,8 @@ Phases (any failure exits non-zero before the result lines):
    allocator balances, acceptance >= 0.5, each stream equals phase 3's or
    diverges at a bf16 near-tie; the ragged kernel launched (12 + 12)
    times a step (target pass and draft ingest) and the paged decode
-   kernel 4 x 12 times a speculating step (the draft's proposals); a
+   kernel 4 x 12 times a step (the draft's proposals, in every step's
+   program); a
    warm-up serve traces 20 steps, plain and speculative serves are timed
    back to back, then an int8-pool speculative serve of 8 requests (no
    paged-kernel launch: int8 pools take the gather path);
@@ -157,7 +165,18 @@ Phases (any failure exits non-zero before the result lines):
    near-tie, launches exact; then card vs CPU at gpt2-small width with 2
    layers in fp32 (6 requests x 24 tokens, both engines): greedy and
    penalised rows equal, or diverging where the CPU's processed top-2 gap
-   is under 1e-3.
+   is under 1e-3;
+16. the programs as CUDA graphs against eager (``disable_graphs()``) at
+   full width: phase 3's ragged serve, the same with a self-draft at K 4,
+   phase 12's bucketed paged serve and the contiguous engine at phase
+   12's settings, each warmed and served both ways: no program built
+   while serving, budgets held, launches exact (B1 L a ragged step and 2L
+   a speculative one, B5 K x L a speculative step and L a bucketed tick,
+   B2 L an admission), streams equal or diverging at a bf16 near-tie;
+   per mode the warmup wall, the graph pool's memory, ms a step, tokens/s
+   and a 10-round device profile; then per-request sampled serves (phase
+   15's three kinds, one seed) through the ragged and the bucketed paged
+   engine draw identical tokens both ways.
 
 Then each kernel is timed at its main path's shapes beside its plain
 version, one PyTorch call computing the same function (``library_ms``,
@@ -177,6 +196,8 @@ Without CUDA, or run without the rest of the repository, it exits
 non-zero and prints no result.
 """
 
+import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -510,6 +531,7 @@ def serve(model, reqs, profile_steps=None, **kw):
     eng = RaggedPagedContinuousBatchingEngine(
         model, max_slots=8, max_len=512, block_size=16,
         prompt_buckets=[64, 128], token_budget=256, device="cuda", **kw)
+    warm(eng)
     budgets, added, step, prof = {}, 0, 0, None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -530,12 +552,49 @@ def serve(model, reqs, profile_steps=None, **kw):
     return eng, time.perf_counter() - t0, eng.pop_finished(), budgets
 
 
-def start_profile():
+def reset_launches():
+    """Zero the launch counts of the serving paths' kernels."""
+    from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+
+    rpa.ragged_attention_cuda.launches = 0
+    pa.paged_decode_attention_cuda.launches = 0
+    A.flash_fwd_cuda.launches = 0
+
+
+def warm(eng):
+    """Build the engine's programs (``warmup()``: its CUDA graphs), then
+    zero the kernels' launch counts, so no capture falls inside a timed
+    serve and the counts that follow are the serve's own.  Returns the
+    warmup report, the bytes of the engine's graph memory pool (its
+    segments in ``torch.cuda.memory_snapshot()``) and the growth of
+    ``torch.cuda.memory_reserved()`` over the warmup with the allocator's
+    free cache emptied on both sides (the graph pool plus whatever else
+    the first runs allocated for good, such as the weights' cast copies)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    r0 = torch.cuda.memory_reserved()
+    report = eng.warmup()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    grown = torch.cuda.memory_reserved() - r0
+    pool = eng._graph_pool
+    graph_bytes = 0 if pool is None else sum(
+        s["total_size"] for s in torch.cuda.memory_snapshot()
+        if tuple(s.get("segment_pool_id", ())) == tuple(pool))
+    reset_launches()
+    return report, graph_bytes, grown
+
+
+def start_profile(cpu=True):
+    """A running profiler of the device (and of the host's PyTorch ops
+    with ``cpu``: a window's host trace costs its report time)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    prof = profile(activities=[ProfilerActivity.CPU,
-                               ProfilerActivity.CUDA])
+    prof = profile(activities=[ProfilerActivity.CPU] * cpu
+                   + [ProfilerActivity.CUDA])
     prof.__enter__()
     prof.t0 = time.perf_counter()
     return prof
@@ -576,6 +635,10 @@ def report_profile(prof, n_steps, ticks_per_step=None, kernel=None):
     for e in rows[:12]:
         say(f"  {e.self_device_time_total / 1e3 / n_steps:8.4f} ms/step "
             f"{e.count // n_steps:5d}/step  {e.key[:90]}")
+    report_profile.last = dict(wall_ms=1e3 * wall / n_steps,
+                               busy_ms=busy_us / 1e3 / n_steps,
+                               busy_share=busy_us / 1e6 / wall,
+                               kernels=launches / n_steps)
     return busy_us / 1e3 / n_steps
 
 
@@ -1671,6 +1734,7 @@ def serve_upfront(eng, reqs, profile_steps=None, kernel=None):
     {rid: tokens}, {rid: budget}).  ``profile_steps=(a, b)`` traces
     scheduler rounds [a, b), one decode sync each, and abandons the serve
     after round b (a warm-up that only the trace is wanted from)."""
+    warm(eng)
     budgets = {eng.add_request(p, n): n for p, n in reqs}
     step, prof = 0, None
     torch.cuda.synchronize()
@@ -1904,8 +1968,10 @@ def phase13():
                     prompt_buckets=buckets, device="cuda")
 
     def ragged(prefix):
-        return RaggedPagedContinuousBatchingEngine(
+        eng = RaggedPagedContinuousBatchingEngine(
             model, token_budget=64, enable_prefix_cache=prefix, **settings)
+        warm(eng)
+        return eng
 
     def ttft_once(eng):
         first = []
@@ -1962,6 +2028,7 @@ def phase13():
 
     eng = PagedContinuousBatchingEngine(model, enable_prefix_cache=True,
                                         **settings)
+    warm(eng)          # the hit's cpre program is built at its dispatch
     pa.paged_decode_attention_cuda.launches = 0
     A.flash_fwd_cuda.launches = 0
     first = ttft_once(eng)[1]
@@ -2003,8 +2070,8 @@ def phase14(plain_streams, plain_streams8):
     plain stream for the request or diverges at a bf16 near-tie.  The
     eager step launches the ragged kernel (L + L_d) times a step (the
     target's pass and the draft's ingest of the same pack) and the paged
-    decode kernel K x L_d times a step that speculates (the draft's K
-    proposal steps; none when no slot speculates).  A warm-up serve
+    decode kernel K x L_d times a step (the draft's K proposal steps run
+    in every step's program).  A warm-up serve
     traces 20 mid-run steps; a plain serve and the spec serve are timed
     back to back; then an int8-pool spec serve of the first 8 requests
     (int8 draft pools take the gather path: no paged-kernel launch)."""
@@ -2050,9 +2117,9 @@ def phase14(plain_streams, plain_streams8):
         return eng, wall, [got[r] for r in sorted(got)], ragged, decode
 
     eng, wall, streams, ragged, decode = run(model, reqs, "phase14 bf16")
-    check(decode == K * Ld * eng.spec_rounds > 0,
+    check(decode == K * Ld * eng.ragged_steps > 0,
           f"phase14: paged kernel launches {decode} != {K} x {Ld} x "
-          f"{eng.spec_rounds} speculating steps")
+          f"{eng.ragged_steps} steps")
     tokens = sum(len(s) for s in streams)
     same = sum(same_or_tie(f"phase14 request {i} spec vs plain", s,
                            plain_streams[i], reqs[i][0], [64, 128], model)
@@ -2066,7 +2133,7 @@ def phase14(plain_streams, plain_streams8):
         f"plain (phase 3's serve, timed just before) {ptokens / pwall:.1f} "
         f"tokens/s, wall {pwall:.3f} s; ragged kernel launches {ragged} = "
         f"({L} + {Ld}) x {eng.ragged_steps}, paged kernel launches {decode} "
-        f"= {K} x {Ld} x {eng.spec_rounds}; streams equal to phase 3's "
+        f"= {K} x {Ld} x {eng.ragged_steps}; streams equal to phase 3's "
         f"{same}/{len(streams)}")
     del model, eng
     m8 = full_width_model("int8")
@@ -2161,15 +2228,19 @@ def phase15():
     P, blk = SERVE_BUCKET, SERVE_BLOCK
 
     def bucketed(**kw):
-        return PagedContinuousBatchingEngine(
+        eng = PagedContinuousBatchingEngine(
             model, max_slots=SERVE_SLOTS, max_len=max_len, block_size=blk,
             prompt_buckets=[P], ticks_per_sync=SERVE_TICKS, device="cuda",
             **kw)
+        warm(eng)
+        return eng
 
     def ragged(**kw):
-        return RaggedPagedContinuousBatchingEngine(
+        eng = RaggedPagedContinuousBatchingEngine(
             model, max_slots=SERVE_SLOTS, max_len=max_len, block_size=16,
             prompt_buckets=[P], token_budget=256, device="cuda", **kw)
+        warm(eng)
+        return eng
 
     def run(eng, sampling=None):
         """(streams in request order, wall s)."""
@@ -2285,6 +2356,195 @@ def phase15():
     say(f"phase15 card vs CPU (gpt2-small width, 2 layers, fp32, per-request "
         f"planes, 6 requests x 24 tokens): greedy and penalised rows equal "
         f"bucketed {agree['bucketed']}/4, ragged {agree['ragged']}/4")
+
+
+# ------------------------------------------------------------ phase 16 --
+
+def drive(eng, reqs, arrivals=None, window=None, ticks=None):
+    """Serve ``reqs`` through a warmed ``eng``: ``arrivals`` a scheduler
+    round (all queued up front when None).  ``window=(a, b)`` traces rounds
+    [a, b) with ``torch.profiler`` and stops after round b (a run that only
+    the trace is wanted from).  Returns (wall s, streams in request order,
+    rounds)."""
+    rids, added, step, prof = [], 0, 0, None
+    if arrivals is None:
+        rids = [eng.add_request(p, n) for p, n in reqs]
+        added = len(reqs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while added < len(reqs) or eng.pending():
+        if window is not None and step >= window[1]:
+            break
+        for _ in range(arrivals or 0):
+            if added < len(reqs):
+                rids.append(eng.add_request(*reqs[added]))
+                added += 1
+        if window is not None and step == window[0]:
+            prof = start_profile(cpu=False)
+        eng.step()
+        step += 1
+        if prof is not None and step == window[1]:
+            report_profile(prof, window[1] - window[0], ticks)
+            prof = None
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = eng.pop_finished()
+    return wall, [got.get(r) for r in rids], step
+
+
+def phase16():
+    """The engines' programs as CUDA graphs at full width (gpt2-small
+    bf16, seed 0): the ragged engine and the speculative one (self-draft,
+    K 4) at phase 3's settings and traffic, the bucketed paged engine and
+    the contiguous one at phase 12's, each warmed and served with graphs
+    (the default) and then under ``disable_graphs()``.  Per mode and
+    engine: warmup wall, the graph pool's memory, ms a step (a ragged
+    step, or a sync of 8 decode ticks), tokens/s, and a 10-round profile
+    of the device alone (device busy, device kernels a round) in a
+    separate run.  Checks: no
+    program is built while an engine serves (``compile_misses`` does not
+    move), every request gets its budget, the kernels launched exactly
+    (B1 L a ragged step, 2L a speculative one; B5 K x L a speculative
+    step and L a bucketed tick; B2 L an admission of the bucketed
+    engines), streams equal to the eager serve's or diverge at a bf16
+    near-tie; and a per-request sampled serve (greedy, penalised and
+    sampled rows) draws identical tokens both ways, on the ragged and on
+    the bucketed paged engine."""
+    from paddle_tpu_torch.jit.programs import disable_graphs
+    from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.serving_paged import (
+        PagedContinuousBatchingEngine, RaggedPagedContinuousBatchingEngine)
+
+    model, breqs, max_len, _ = bucketed_serve()    # phase 3's model too
+    L, K = model.config.num_layers, SPEC_K
+    rreqs = serving_traffic(model.config.vocab_size)
+    ragged_kw = dict(max_slots=8, max_len=512, block_size=16,
+                     prompt_buckets=[64, 128], token_budget=256,
+                     device="cuda")
+    bucket_kw = dict(max_slots=SERVE_SLOTS, max_len=max_len,
+                     prompt_buckets=[SERVE_BUCKET],
+                     ticks_per_sync=SERVE_TICKS, device="cuda")
+
+    def ragged(**kw):
+        return RaggedPagedContinuousBatchingEngine(model, **ragged_kw, **kw)
+
+    def spec(**kw):
+        return ragged(draft_model=model, draft_k=K, **kw)
+
+    def paged(**kw):
+        return PagedContinuousBatchingEngine(model, block_size=SERVE_BLOCK,
+                                             **bucket_kw, **kw)
+
+    def contiguous(**kw):
+        return ContinuousBatchingEngine(model, **bucket_kw, **kw)
+
+    # name -> (factory, requests, arrivals a round, buckets, profile window)
+    arms = {"ragged": (ragged, rreqs, 2, [64, 128], (40, 50)),
+            "speculative": (spec, rreqs, 2, [64, 128], (10, 20)),
+            "bucketed paged": (paged, breqs, None, [SERVE_BUCKET], (20, 30)),
+            "contiguous": (contiguous, breqs, None, [SERVE_BUCKET],
+                           (20, 30))}
+
+    def steps_of(eng):
+        return (eng.ragged_steps if hasattr(eng, "ragged_steps")
+                else eng.decode_syncs)
+
+    def serve_mode(name, make, reqs, arrivals, window):
+        eng = make()
+        report, pool, grown = warm(eng)
+        misses = eng._compile_misses
+        wall, streams, _ = drive(eng, reqs, arrivals)
+        launches = (rpa.ragged_attention_cuda.launches,
+                    pa.paged_decode_attention_cuda.launches,
+                    A.flash_fwd_cuda.launches)
+        check(eng._compile_misses == misses,
+              f"phase16 {name}: {eng._compile_misses - misses} programs "
+              f"built while serving")
+        check(report["programs"] == len(eng.compile_grid()),
+              f"phase16 {name}: warmup built {report['programs']} programs")
+        for s, (_, n) in zip(streams, reqs):
+            check(s is not None and len(s) == n,
+                  f"phase16 {name}: a request did not get its {n} tokens")
+        steps = steps_of(eng)
+        ticks = steps * getattr(eng, "ticks_per_sync", 1)
+        r_l, d_l, f_l = launches
+        if name.startswith("ragged"):
+            want = (L * steps, 0, 0)
+        elif name.startswith("speculative"):
+            want = (2 * L * steps, K * L * steps, 0)
+        elif name.startswith("bucketed"):
+            want = (0, L * ticks, L * len(reqs))
+        else:
+            want = (0, 0, L * len(reqs))
+        check(launches == want and steps > 0,
+              f"phase16 {name}: launches ragged/paged/flash_fwd {launches}, "
+              f"want {want} ({steps} steps)")
+        del eng
+        peng = make()
+        warm(peng)
+        say(f"phase16 {name} profile, rounds {window[0]}-{window[1] - 1}:")
+        drive(peng, reqs, arrivals, window,
+              getattr(peng, "ticks_per_sync", None)
+              if not hasattr(peng, "ragged_steps") else None)
+        prof = report_profile.last
+        tokens = sum(len(s) for s in streams)
+        say(f"phase16 {name}: {tokens} tokens in {wall:.3f} s = "
+            f"{tokens / wall:.1f} tokens/s, {1e3 * wall / steps:.3f} ms a "
+            f"step over {steps} steps; warmup {report['programs']} programs "
+            f"in {report['wall_s']:.3f} s, graph pool {pool / 2**20:.1f} "
+            f"MiB (reserved memory grew {grown / 2**20:.1f} MiB); profile "
+            f"{prof['wall_ms']:.3f} ms a "
+            f"round, device busy {prof['busy_ms']:.3f} ms "
+            f"({100 * prof['busy_share']:.1f}%), {prof['kernels']:.0f} "
+            f"device kernels a round; launches ragged/paged/flash_fwd "
+            f"{launches}")
+        return streams, tokens / wall, 1e3 * wall / steps
+
+    results = {}
+    for name, (make, reqs, arrivals, buckets, window) in arms.items():
+        g = serve_mode(f"{name} graphs", make, reqs, arrivals, window)
+        with disable_graphs():
+            e = serve_mode(f"{name} eager", make, reqs, arrivals, window)
+        same = sum(same_or_tie(f"phase16 {name} request {i} graphs vs "
+                               f"eager", a, b, reqs[i][0], buckets, model)
+                   for i, (a, b) in enumerate(zip(g[0], e[0])))
+        results[name] = (g, e, same)
+        say(f"phase16 {name}: graphs {g[1]:.1f} tokens/s at {g[2]:.3f} ms a "
+            f"step against eager {e[1]:.1f} tokens/s at {e[2]:.3f} ms "
+            f"({g[1] / e[1]:.2f}x); streams equal {same}/{len(reqs)}")
+    gr, gs = results["ragged"][0], results["speculative"][0]
+    say(f"phase16 speculative against plain ragged, both with graphs: "
+        f"{gs[1]:.1f} against {gr[1]:.1f} tokens/s ({gs[1] / gr[1]:.2f}x)")
+
+    # per-request sampling: the same seed draws the same tokens both ways
+    eos = results["ragged"][0][0][1][1]
+    kinds = mixed_sampling(eos)
+    for name, make, reqs in (
+            ("ragged", ragged, rreqs[:8]),
+            ("bucketed paged", paged, [breqs[i] for i in (0, 1, 2, 4, 5, 6)])):
+        out = []
+        for mode in ("graphs", "eager"):
+            ctx = disable_graphs() if mode == "eager" else \
+                contextlib.nullcontext()
+            with ctx:
+                eng = make(per_request_sampling=True,
+                           generator=torch.Generator("cuda").manual_seed(16))
+                warm(eng)
+                rids = [eng.add_request(p, n, **kinds[i % 3])
+                        for i, (p, n) in enumerate(reqs)]
+                got = eng.run_to_completion(max_ticks=5000)
+                out.append([got[r] for r in rids])
+        check_windows(f"phase16 sampled {name}", out[0],
+                      [n for _, n in reqs], kinds, eos)
+        check(out[0] == out[1], f"phase16 sampled {name}: graphs and eager "
+                                f"drew different tokens")
+        say(f"phase16 per-request sampled serve through the {name} engine "
+            f"({len(reqs)} requests, greedy/penalised/sampled, one seed): "
+            f"graphs and eager drew identical tokens "
+            f"({sum(len(s) for s in out[0])})")
 
 
 def bytes_ops_bound(nbytes, flops):
@@ -2495,6 +2755,8 @@ def main():
     phase13()
     phase14(plain_streams, plain_streams8)
     phase15()
+    gc.collect()
+    phase16()
 
     ms, plain_ms, library_ms, bound_ms, bound_by, _ = t = time_pack(main_pack)
     say_pack_time("bf16 pools at the phase-3 shapes", t, card)

@@ -53,7 +53,9 @@ def dequantize_cache(cache, dtype):
 def _row_clocks(t, B, device):
     """``t`` (a Python int, a 0-d or a (B,) tensor) as a (B,) int64
     tensor of per-row cache slots."""
-    t = torch.as_tensor(t, device=device).long()
+    if not isinstance(t, torch.Tensor):
+        return torch.full((B,), int(t), dtype=torch.long, device=device)
+    t = t.to(device).long()
     return t.expand(B) if t.dim() == 0 else t
 
 
@@ -176,8 +178,8 @@ def cached_attention(q, ck, cv, t, pad_lens=None):
             return o[:, None]
         ck = ck.gather(q.dtype)
         cv = cv.gather(q.dtype)
-    root = torch.sqrt(torch.tensor(float(hd), dtype=torch.float32,
-                                   device=q.device)).to(q.dtype)
+    root = torch.sqrt(torch.full((), float(hd), dtype=torch.float32,
+                                 device=q.device)).to(q.dtype)
     scores = torch.einsum("bqhd,bkhd->bhqk", q, ck) / root
     row = torch.arange(kq, device=q.device)[:, None]
     col = torch.arange(ck.shape[1], device=q.device)[None, :]
@@ -188,7 +190,7 @@ def cached_attention(q, ck, cv, t, pad_lens=None):
         mask = (col <= int(t) + row)[None, None]
     if pad_lens is not None:
         mask = mask & (col >= pad_lens.long()[:, None])[:, None, None, :]
-    neg = torch.tensor(_NEG_INF, device=q.device).to(scores.dtype)
+    neg = torch.full((), _NEG_INF, device=q.device).to(scores.dtype)
     scores = torch.where(mask, scores, neg)
     probs = torch.softmax(scores.float(), -1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, cv)
@@ -220,7 +222,7 @@ def filter_logits(logits32, temperature, top_k, top_p):
     """Temperature → top-k → nucleus (top-p) filtering on the last axis of
     (…, V) fp32 logits."""
     logits32 = logits32 / max(temperature, 1e-6)
-    neg_inf = torch.tensor(float("-inf"), device=logits32.device)
+    neg_inf = torch.full((), float("-inf"), device=logits32.device)
     if top_k is not None:
         kth = torch.topk(logits32, top_k, -1).values[..., -1:]
         logits32 = torch.where(logits32 < kth, neg_inf, logits32)
@@ -239,8 +241,9 @@ def apply_repetition_penalty(logits32, presence, penalty):
     and negative logits multiply by it — both push the token down for
     penalty > 1.  ``penalty`` is a scalar or a per-row (B,) tensor; 1.0 is
     an exact no-op."""
-    penalty = torch.as_tensor(penalty, dtype=logits32.dtype,
-                              device=logits32.device)
+    if not isinstance(penalty, torch.Tensor):
+        penalty = torch.full((), float(penalty), dtype=logits32.dtype,
+                             device=logits32.device)
     if penalty.dim() == 1:
         penalty = penalty[:, None]
     pen = torch.where(logits32 > 0, logits32 / penalty, logits32 * penalty)
@@ -269,7 +272,8 @@ def suppress_eos(logits32, eos_token_id, suppress):
     contract."""
     dev = logits32.device
     col = torch.arange(logits32.shape[-1], device=dev) == eos_token_id
-    sup = torch.as_tensor(suppress, dtype=torch.bool, device=dev)
+    sup = (suppress.to(dev, torch.bool) if isinstance(suppress, torch.Tensor)
+           else torch.full((), bool(suppress), device=dev))
     if sup.dim() == 0:
         sup = sup[None]
     return torch.where(sup[:, None] & col[None, :], float("-inf"), logits32)
@@ -309,8 +313,7 @@ def make_row_sampler():
     def sample(logits32, generator, temperature, top_k, top_p, greedy):
         l = filter_logits_rows(logits32[:, -1, :], temperature, top_k,
                                top_p)
-        drawn = torch.multinomial(torch.softmax(l, -1), 1,
-                                  generator=generator)[:, 0]
+        drawn = draw_categorical(torch.softmax(l, -1), generator)
         return torch.where(greedy, torch.argmax(l, -1), drawn)
     return sample
 
@@ -349,6 +352,16 @@ def greedy_verify(d, tpred, active=None):
     return lead, block
 
 
+def draw_categorical(probs, generator):
+    """One draw a row from (B, V) probabilities: ``torch.multinomial(probs,
+    1, generator=generator)[:, 0]`` written out as its own one-sample path
+    computes it (argmax of ``probs / q`` with ``q ~ Exp(1)`` from
+    ``generator``), the same draws without its host-side validity check,
+    so the draw can sit inside a CUDA graph."""
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / q, -1)
+
+
 def make_token_sampler(temperature, top_k, top_p, greedy):
     """Last-position sampler: ``sample(logits32 (B, 1, V), generator)`` →
     (B,) int64 tokens — argmax (first maximum on ties, as ``jnp.argmax``),
@@ -358,8 +371,7 @@ def make_token_sampler(temperature, top_k, top_p, greedy):
                                  top_p)
         if greedy:
             return torch.argmax(logits32, -1)
-        probs = torch.softmax(logits32, -1)
-        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+        return draw_categorical(torch.softmax(logits32, -1), generator)
     return sample
 
 

@@ -7,6 +7,11 @@ PyTorch headers: a build takes seconds, not minutes).  Libraries land in
 sources and flags, so an edited source rebuilds and an unchanged one is
 reused.  ``build_all`` starts one ``nvcc`` per source, all at once.
 
+``note_launch`` is the kernels' launch count: a wrapper calls it once a
+launch.  Inside a CUDA graph capture nothing runs, so the launch goes into
+the capture's tally instead, which the graph adds on every replay
+(``jit/programs.py``).
+
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc``.
 """
@@ -21,6 +26,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
 
@@ -34,6 +41,26 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_capture_tally: Dict[object, int] = {}
+
+
+def note_launch(wrapper) -> None:
+    """Count one launch of ``wrapper``'s kernel in ``wrapper.launches``,
+    or, while this thread's stream is being captured into a CUDA graph
+    (where the kernel is recorded, not run), in the capture's tally."""
+    if (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing()):
+        _capture_tally[wrapper] = _capture_tally.get(wrapper, 0) + 1
+    else:
+        wrapper.launches += 1
+
+
+def take_capture_tally() -> Dict[object, int]:
+    """The launches tallied since the last call, {wrapper: count}; clears
+    the tally."""
+    out = dict(_capture_tally)
+    _capture_tally.clear()
+    return out
 
 
 def nvcc_path() -> str:

@@ -27,6 +27,8 @@ import math
 
 import torch
 
+from ._build import note_launch
+
 _NEG_INF = -1e30
 _HEAD_DIMS = (64, 128)
 _KERNEL_TILE = 64            # rows of the CUDA kernels' q and k tiles
@@ -45,13 +47,13 @@ def dense_attention(q, k, v, mask=None, causal=False, scale=None,
     ``generator`` is given (the reference's rule with its PRNG key)."""
     D = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    scores = torch.einsum("blhd,bmhd->bhlm", q, k) * torch.tensor(
-        scale, dtype=q.dtype, device=q.device)
+    scores = torch.einsum("blhd,bmhd->bhlm", q, k) * torch.full(
+        (), scale, dtype=q.dtype, device=q.device)
     if causal:
         Lq, Lk = scores.shape[-2], scores.shape[-1]
         row = torch.arange(Lq, device=q.device)[:, None]
         col = torch.arange(Lk, device=q.device)[None, :]
-        neg = torch.tensor(_NEG_INF, device=q.device).to(scores.dtype)
+        neg = torch.full((), _NEG_INF, device=q.device).to(scores.dtype)
         scores = torch.where(col <= row + (Lk - Lq), scores, neg)
     if mask is not None:
         scores = scores + mask.to(scores.dtype)
@@ -279,7 +281,8 @@ def _launch(name, q, args, stream_dev):
 def flash_fwd_cuda(q, k, v, kmask, seed, causal, scale, dropout_p):
     """Launch ``flash_fwd`` on PyTorch's current stream: returns (out in
     q's layout and dtype, lse (B*H, L) fp32).  Each launch adds one to
-    ``flash_fwd_cuda.launches``."""
+    ``flash_fwd_cuda.launches`` (``note_launch``: a launch inside a CUDA
+    graph counts on each replay)."""
     B, L, H, D = _check("flash_fwd_cuda", q, k, v, kmask)
     drop, seed32, thresh, keep_div = _dropout_args(seed, dropout_p)
     out = torch.empty_like(q)
@@ -289,7 +292,7 @@ def flash_fwd_cuda(q, k, v, kmask, seed, causal, scale, dropout_p):
         kmask.data_ptr(), out.data_ptr(), lse.data_ptr(), B, L, H,
         float(scale), int(causal), drop, seed32, thresh, keep_div),
         q.device)
-    flash_fwd_cuda.launches += 1
+    note_launch(flash_fwd_cuda)
     return out, lse
 
 

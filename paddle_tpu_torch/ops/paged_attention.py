@@ -45,6 +45,8 @@ import math
 
 import torch
 
+from ._build import note_launch
+
 _NEG_INF = -1e30
 _HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -112,6 +114,16 @@ def _launch_plan(S, nh, hd, itemsize, bs, C):
     computed once a shape."""
     tile = decode_tile_positions(nh, hd, itemsize)
     return (tile, *decode_workspace_sizes(S, C, bs, nh, hd, tile))
+
+
+def reserve_workspace(device, stream, S, nh, hd, itemsize, bs, C):
+    """Grow the workspace of launches on ``stream`` to what a launch over
+    up to ``C`` table columns needs (the sizes grow with C), before a CUDA
+    graph captures a launch: a graph keeps the workspace's address, and a
+    later launch that outgrew it would reallocate and free that memory.
+    Returns (partials, tickets)."""
+    _, n_part, n_tickets = _launch_plan(S, nh, hd, itemsize, bs, C)
+    return _workspace(torch.device(device), stream, n_part, n_tickets)
 
 
 def _workspace(device, stream, n_part, n_tickets):
@@ -189,7 +201,8 @@ def paged_decode_attention_cuda(q, pool_k, pool_v, table, t, pad_lens=None):
     """Launch the Hopper kernel on PyTorch's current stream.  Returns
     (S, nh, hd) in q's dtype.  ``pad_lens=None`` reaches the kernel as a
     null pointer, which it reads as no left pads.  Each launch adds one to
-    ``paged_decode_attention_cuda.launches``."""
+    ``paged_decode_attention_cuda.launches`` (``note_launch``: a launch
+    inside a CUDA graph counts on each replay)."""
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention_cuda takes CUDA tensors, "
                          f"got {q.device}")
@@ -216,7 +229,7 @@ def paged_decode_attention_cuda(q, pool_k, pool_v, table, t, pad_lens=None):
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed "
                            f"(CUDA error {rc})")
-    paged_decode_attention_cuda.launches += 1
+    note_launch(paged_decode_attention_cuda)
     return out
 
 

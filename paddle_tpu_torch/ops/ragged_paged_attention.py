@@ -29,6 +29,8 @@ import math
 
 import torch
 
+from ._build import note_launch
+
 _NEG_INF = -1e30
 _HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -218,7 +220,8 @@ def ragged_attention_cuda(q, pool_k, pool_v, table, row_seq, row_pos,
     (T, nh, hd) in q's dtype; padding rows (row_pos == -1) and rows with
     nothing in [pad, row_pos] are zeros.  ``plan``: ``ragged_plan`` of
     these rows (built here when None).  Each call adds one to
-    ``ragged_attention_cuda.launches``."""
+    ``ragged_attention_cuda.launches`` (``note_launch``: a launch inside a
+    CUDA graph counts on each replay)."""
     if q.device.type != "cuda":
         raise ValueError(f"ragged_attention_cuda takes CUDA tensors, got "
                          f"{q.device}")
@@ -261,7 +264,7 @@ def ragged_attention_cuda(q, pool_k, pool_v, table, row_seq, row_pos,
     if rc != 0:
         raise RuntimeError(f"ragged_paged_attention kernel launch failed "
                            f"(CUDA error {rc})")
-    ragged_attention_cuda.launches += 1
+    note_launch(ragged_attention_cuda)
     return out
 
 

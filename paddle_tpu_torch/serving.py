@@ -34,13 +34,26 @@ plane on the device (seeded at admission from the prompt) and per-row EOS
 windows; with ``per_request_sampling=True`` every sampler knob becomes a
 per-request ``add_request`` argument carried in per-slot planes, and one
 sampler call per tick serves any mixture of configs.
+
+Every device step is a PROGRAM (``jit/programs.py``): the admission
+prefill per bucket (``prefill:{P}``), the prefill segments
+(``seg:{chunk}:{first}{last}``) and the decode sync (``decode``; the paged
+engine's ``decode:{C}`` per table width).  The slot, pad, ids, clocks and
+table rows are the program's int32 operands, so one program serves every
+slot; on a card a program is one CUDA graph, replayed as one launch.
+``compile_grid()`` names every program the engine can dispatch and
+``warmup()`` builds them before traffic, so a warmed engine serves with
+zero program-cache misses.  Programs are cached per engine (a graph binds
+this engine's pools), not per model as in the reference.
 """
 
 from __future__ import annotations
 
 import itertools
 import logging
+import threading
 import time
+from functools import partial
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -48,6 +61,7 @@ import torch
 
 from . import resolve_device
 from .jit.bucketing import select_bucket
+from .jit.programs import GraphProgram, WarmupTask, run_warmup, warmup_async
 from .models._decode import (apply_repetition_penalty, make_row_sampler,
                              make_token_sampler, seed_presence,
                              suppress_eos, suppress_eos_rows,
@@ -231,7 +245,11 @@ class ContinuousBatchingEngine:
             self._r_planes = np.zeros((7, self.S), np.float32)
             self._r_planes[:] = np.asarray([1.0, 0, 2.0, 1, 1.0, 0, -1],
                                            np.float32)[:, None]
-            self._planes_dev = None
+            # the planes' device copy: ONE buffer, overwritten in place
+            # after an admission changed them (a graph reads its address)
+            self._planes_buf = torch.empty((7, self.S), dtype=torch.float32,
+                                           device=self.device)
+            self._planes_dirty = True
         self._presence = (torch.zeros((self.S, c.vocab_size),
                                       dtype=torch.bool, device=self.device)
                           if self._track else None)
@@ -248,37 +266,90 @@ class ContinuousBatchingEngine:
         self._ids = itertools.count()
         self._stats = StatRegistry()
         self._started = time.monotonic()
+        # programs: a per-engine cache, plain-int counters (reported by
+        # metrics()), one graph memory pool and capture stream on a card,
+        # and the lock step() and warmup tasks share
+        self._programs: Dict[str, GraphProgram] = {}
+        self._compile_hits = 0
+        self._compile_misses = 0
+        self._graph_pool = None
+        self._capture_stream = None
+        self._lock = threading.RLock()
 
     def _alloc_caches(self):
         """Cache storage seam: one (L, S, max_len, nh, hd) row per slot;
         the paged subclass replaces this with a block pool + tables."""
         return self.model.init_cache(self.S, self.max_len)
 
-    # ---------------------------------------------------- device programs --
+    # ----------------------------------------------------------- programs --
+
+    def _cached_prog(self, key: str, build):
+        """The engine's program ``key`` (its label), built by ``build()``
+        on a miss; every fetch counts a hit or a miss."""
+        prog = self._programs.get(key)
+        hit = prog is not None
+        if not hit:
+            prog = self._programs[key] = build()
+        self._note_prog(key, hit)
+        return prog
+
+    def _note_prog(self, key: str, hit: bool):
+        """Program-cache accounting: two plain-int counters."""
+        if hit:
+            self._compile_hits += 1
+        else:
+            self._compile_misses += 1
+
+    def _program(self, label, fn, shapes, inert) -> GraphProgram:
+        """A program over this engine's graph pool, capture stream and
+        generator (``jit/programs.py``)."""
+        pool = stream = None
+        if self.device.type == "cuda":
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+                self._capture_stream = torch.cuda.Stream(self.device)
+                self._before_first_capture()
+            pool, stream = self._graph_pool, self._capture_stream
+        return GraphProgram(label, fn, shapes, inert, device=self.device,
+                            pool=pool, stream=stream,
+                            generator=self.generator)
+
+    def _before_first_capture(self):
+        """Seam run once before the engine's first program on a card: size
+        what launches inside graphs reuse (the paged engines reserve the
+        paged decode kernel's workspace on the capture stream)."""
+
+    def _dispatch(self, key: str, build, *host):
+        """Fetch program ``key`` and run it on the host operands ``host``
+        (the sampling planes' device buffer refreshed first when an
+        admission changed them)."""
+        prog = self._cached_prog(key, build)
+        if self.per_request and self._planes_dirty:
+            self._planes_buf.copy_(torch.from_numpy(self._r_planes))
+            self._planes_dirty = False
+        return prog(*host)
 
     def _plane_operands(self):
-        """The per-slot sampling planes as device tensors (one host→device
-        copy after an admission changed them): temperature, top_k, top_p,
-        greedy, penalty, min_new_tokens, eos (-1 = none)."""
-        if self._planes_dev is None:
-            d = torch.from_numpy(self._r_planes).to(self.device)
-            self._planes_dev = (d[0], d[1].long(), d[2], d[3].bool(), d[4],
-                                d[5].int(), d[6].long())
-        return self._planes_dev
+        """The per-slot sampling planes, read from their device buffer:
+        temperature, top_k, top_p, greedy, penalty, min_new_tokens, eos
+        (-1 = none)."""
+        d = self._planes_buf
+        return (d[0], d[1].long(), d[2], d[3].bool(), d[4], d[5].int(),
+                d[6].long())
 
     def _sample_tail(self, logits32, slots=None, emitted=None,
                      update=None):
         """The sampling sequence every path shares — penalty → EOS window →
         draw → presence update — over (R, V) fp32 logits of the slots
-        ``slots`` (a slice; None = all S).  ``emitted`` (R,) counts each
-        row's tokens so far (None = 0, a prompt's first token); ``update``
-        (R,) bool picks the rows whose draw joins their presence row (None
-        = all).  ONE copy for whole-bucket prefill, the last prefill
-        segment, the decode tick and the ragged pack, so their processors
-        cannot drift.  Returns (R,) int64 tokens."""
+        ``slots`` (an (R,) index tensor; None = all S).  ``emitted`` (R,)
+        counts each row's tokens so far (None = 0, a prompt's first token);
+        ``update`` (R,) bool picks the rows whose draw joins their presence
+        row (None = all).  ONE copy for whole-bucket prefill, the last
+        prefill segment, the decode tick and the ragged pack, so their
+        processors cannot drift.  Returns (R,) int64 tokens."""
         pres = self._presence
         if pres is not None and slots is not None:
-            pres = pres[slots]
+            pres = pres[slots]              # rows written back below
         if self.per_request:
             temp, topk, topp, greedy, rpv, mnv, eosv = (
                 p if slots is None else p[slots]
@@ -301,36 +372,69 @@ class ContinuousBatchingEngine:
             col = tok[:, None]
             mark = (torch.ones_like(col, dtype=torch.bool) if update is None
                     else pres.gather(1, col) | update[:, None])
-            pres.scatter_(1, col, mark)     # a slice of the plane: in place
+            pres.scatter_(1, col, mark)
+            if slots is not None:
+                self._presence[slots] = pres
         return tok
 
-    def _first_token(self, h_last, slot):
-        """Sample slot ``slot``'s first token from its prompt's last hidden
-        state (1, 1, H) through ``_sample_tail``: shared by whole-bucket
-        prefill, the last prefill segment and prefix-hit admission.
-        Returns a device scalar."""
+    def _first_token(self, h_last, slot, live):
+        """Sample the first token of the slot ``slot`` (a (1,) index) from
+        its prompt's last hidden state (1, 1, H) through ``_sample_tail``,
+        its presence row updated where ``live`` (1,) holds: shared by
+        whole-bucket prefill, the last prefill segment and prefix-hit
+        admission.  Returns a (1,) device tensor."""
         return self._sample_tail(self.model.decode_logits(h_last)[:, -1],
-                                 slots=slice(slot, slot + 1))[0]
+                                 slots=slot, update=live)
 
-    def _seed_presence(self, slot, ids, pad):
-        """Reset slot ``slot``'s presence row and seed it from a prompt's
-        (1, n) ids, the first ``pad`` (a (1,) tensor) positions excluded;
-        no-op without a presence plane."""
+    def _seed_presence(self, slot, ids, pad, live=None):
+        """Reset the presence row of ``slot`` (an index or a slice) and
+        seed it from a prompt's (1, n) ids, the first ``pad`` (a (1,)
+        tensor or None) positions excluded — only where ``live`` (1,) bool
+        holds, when given; no-op without a presence plane."""
         if self._presence is not None:
-            self._presence[slot:slot + 1] = seed_presence(
-                ids, self.model.config.vocab_size, pad)
+            seed = seed_presence(ids, self.model.config.vocab_size, pad)
+            if live is not None:
+                seed = torch.where(live[:, None], seed, self._presence[slot])
+            self._presence[slot] = seed
 
     def _i32(self, values):
         return torch.tensor(values, dtype=torch.int32, device=self.device)
 
+    @staticmethod
+    def _meta(meta):
+        """A program's (slot, pad, [t0,] live) operand vector."""
+        return (meta[0:1].long(),) + tuple(meta[i:i + 1]
+                                           for i in range(1, len(meta) - 1)) \
+            + (meta[-1:].bool(),)
+
+    def _build_prefill(self, P):
+        """Program ``prefill:{P}``: the admission prefill of one bucket —
+        operands ids (P,), (slot, pad, live) and the storage's own
+        (``_prefill_extra``)."""
+        extra = [e.shape for e in self._prefill_extra(0, P)]
+
+        def fn(ids, meta, *rest):
+            slot, pad, live = self._meta(meta)
+            h, new = self.model.prefill(ids[None], P, pad_lens=pad)
+            self._store_prompt_kv(slot, P, new, live, *rest)
+            self._seed_presence(slot, ids[None], pad, live)
+            return self._first_token(h[:, -1:], slot, live)
+
+        return self._program(f"prefill:{P}", fn, [(P,), (3,), *extra],
+                             [np.zeros(P), np.zeros(3)]
+                             + [np.zeros(s) for s in extra])
+
+    def _prefill_extra(self, slot, P):
+        """Seam: the storage's own prefill operands for the slot (the
+        paged engines' block row)."""
+        return ()
+
     def _run_admission_prefill(self, slot, req, P, pad, ids):
         """Prefill ONE request (left-padded to bucket length P) into slot
         ``slot``'s cache storage and activate it with its first token."""
-        ids_t, pad_t = self._i32([ids]), self._i32([pad])
-        h, new = self.model.prefill(ids_t, P, pad_lens=pad_t)
-        self._store_prompt_kv(slot, P, new)
-        self._seed_presence(slot, ids_t, pad_t)
-        tok0 = self._first_token(h[:, -1:], slot)
+        tok0 = self._dispatch(f"prefill:{P}", partial(self._build_prefill, P),
+                              ids, (slot, pad, 1),
+                              *self._prefill_extra(slot, P))
         self._register_prompt_blocks(slot, ids, pad, P)
         self._activate(slot, req, P, pad, int(tok0))
 
@@ -339,48 +443,81 @@ class ContinuousBatchingEngine:
         token is recorded (the paged engines publish the prompt's blocks
         to their prefix cache)."""
 
-    def _store_prompt_kv(self, slot, P, new):
-        """A prefill's fresh caches (L, 1, P, …) into the slot's cache
-        region [0, P) (seam: the paged subclass scatters them into the
-        slot's pool blocks)."""
+    def _store_prompt_kv(self, slot, P, new, live):
+        """A prefill's fresh caches (L, 1, P, …) into the cache region
+        [0, P) of the slot ``slot`` (a (1,) index), where ``live`` (1,)
+        holds (seam: the paged subclass scatters them into the slot's pool
+        blocks)."""
         def put(big, n):
-            big[:, slot, :P] = n[:, 0]
+            keep = live.view((1,) * n.dim())
+            big[:, slot, :P] = torch.where(keep, n.to(big.dtype),
+                                           big[:, slot, :P])
 
         for big, n in zip(self.caches, new):
             _map_planes(put, big, n)
 
+    def _build_seg(self, first, last):
+        """Program ``seg:{chunk}:{first}{last}``: one prefill segment of
+        ``prefill_chunk`` tokens — operands the tokens, (slot, pad, t0,
+        live) and the storage's own (``_seg_extra``); the first segment
+        resets the slot's presence row, the last samples its first
+        token."""
+        seg, V = self.prefill_chunk, self.model.config.vocab_size
+        extra = [e.shape for e in self._seg_extra(0)]
+
+        def fn(toks, meta, *rest):
+            slot, pad, t0, live = self._meta(meta)
+            h = self._suffix_prefill(slot, toks, t0, pad, *rest)
+            if self._presence is not None:
+                row = self._presence[slot]
+                # the segment's prompt tokens, pad positions excluded
+                seen = seed_presence(toks[None], V, pad - t0)
+                new = seen if first else row | seen
+                self._presence[slot] = torch.where(live[:, None], new, row)
+            return self._first_token(h[:, -1:], slot, live) if last else ()
+
+        return self._program(
+            f"seg:{seg}:{int(first)}{int(last)}", fn,
+            [(seg,), (4,), *extra],
+            [np.zeros(seg), [0, 0, self.max_len, 0]]
+            + [np.zeros(s) for s in extra])
+
+    def _seg_extra(self, slot):
+        """Seam: the storage's own segment operands for the slot (the
+        paged engines' table row)."""
+        return ()
+
     def _run_fill_segment(self, slot, st, i, last):
         """One prefill SEGMENT for one slot: ``prefill_chunk`` prompt
         tokens at [t0, t0+seg) through ``_suffix_prefill``.  Returns the
-        first token as a device scalar on the last segment, else None (no
-        host sync until activation)."""
+        first token as a (1,) device tensor on the last segment, else ()
+        (no host sync until activation)."""
         seg = self.prefill_chunk
         t0 = i * seg
-        toks = self._i32(st["ids"][t0:t0 + seg])
-        h = self._suffix_prefill(slot, toks, t0, self._i32([st["pad"]]))
-        if self._presence is not None:
-            if i == 0:
-                self._presence[slot] = False
-            # the segment's prompt tokens, pad positions excluded
-            self._presence[slot:slot + 1] |= seed_presence(
-                toks[None], self.model.config.vocab_size,
-                self._i32([st["pad"] - t0]))
-        return self._first_token(h[:, -1:], slot) if last else None
+        first = i == 0
+        return self._dispatch(
+            f"seg:{seg}:{int(first)}{int(last)}",
+            partial(self._build_seg, first, last),
+            st["ids"][t0:t0 + seg], (slot, st["pad"], t0, 1),
+            *self._seg_extra(slot))
 
     def _suffix_prefill(self, slot, toks, t0, pad):
-        """Embed the ``toks`` (n,) chunk at positions [t0, t0+n) and run it
-        through the chunk decode path (``cached_attention``'s k-query
-        form) over the slot's own cache row — a view, so a segment costs
-        B=1 work and writes in place.  Returns the chunk's hidden
-        states."""
+        """Embed the ``toks`` (n,) chunk at positions [t0, t0+n) (``t0`` a
+        (1,) tensor) and run it through the chunk decode path
+        (``cached_attention``'s k-query form) over a copy of the cache row
+        of the slot ``slot`` (a (1,) index), written back whole: a segment
+        costs B=1 work, and a clock past ``max_len`` writes nothing.
+        Returns the chunk's hidden states."""
         def take(c):
-            return (tuple(p[:, slot:slot + 1] for p in c)
-                    if isinstance(c, tuple) else c[:, slot:slot + 1])
+            return (tuple(p[:, slot] for p in c) if isinstance(c, tuple)
+                    else c[:, slot])
 
         m = self.model
-        h = m._embed_chunk(toks, t0, pad_lens=pad)
-        h, _ = m.decode_step(h, (take(self.caches[0]), take(self.caches[1])),
-                             t0, pad_lens=pad)
+        rows = (take(self.caches[0]), take(self.caches[1]))
+        h = m._embed_chunk(toks[None], t0, pad_lens=pad)
+        h, _ = m.decode_step(h, rows, t0, pad_lens=pad)
+        for big, row in zip(self.caches, rows):
+            _map_planes(lambda b, r: b.index_copy_(1, slot, r), big, row)
         return h
 
     def _decode_tick(self, caches, tok, t, pads, active, emitted):
@@ -402,6 +539,91 @@ class ContinuousBatchingEngine:
         """The caches one decode sync runs over (seam: the paged subclass
         wraps its pools and the sync's table in ``PagedKV``)."""
         return self.caches
+
+    def _build_decode(self, extra_shapes):
+        """Program ``decode`` (the paged engine's ``decode:{C}``): one
+        ``ticks_per_sync`` sync — operands the (5, S) per-slot state
+        (token, clock, pad, active, tokens emitted) and the storage's own
+        (``_decode_extra_operands``); returns the (k, S) token block.
+        Inert: no slot active, clocks at ``max_len`` (writes dropped)."""
+        S, k = self.S, self.ticks_per_sync
+        extra = [tuple(s) for s in extra_shapes]
+
+        def fn(state, *rest):
+            tok, ts, pads, act, emitted = state
+            active = act.bool()
+            caches = self._decode_caches(active, *rest)
+            blk = []
+            for i in range(k):
+                tok = self._decode_tick(caches, tok, ts + i, pads, active,
+                                        emitted + i)
+                blk.append(tok)
+            return torch.stack(blk)
+
+        inert = np.zeros((5, S), np.int32)
+        inert[1] = self.max_len
+        return self._program(self._decode_key(extra), fn, [(5, S)] + extra,
+                             [inert] + [np.zeros(s) for s in extra])
+
+    def _decode_key(self, extra_shapes):
+        """The decode program's label for these storage operand shapes."""
+        return "decode"
+
+    # ------------------------------------------------------------- warmup --
+
+    def compile_grid(self) -> List[str]:
+        """Labels of every program this engine can dispatch — the grid
+        ``warmup()`` builds, the reference's letter for letter."""
+        return [t.label for t in self._warmup_tasks()]
+
+    def warmup(self, cache_dir=None, max_workers: int = 1,
+               block: bool = True):
+        """Build the engine's whole program grid before traffic, so no
+        request waits for a capture: each program runs once eagerly on
+        inert operands (every write lands where nothing reads, the
+        generator's state is restored) and, on a card, is captured as a
+        CUDA graph.  Live state — caches and pools outside trash block 0,
+        presence, sampling planes, the generator, every stat — stays as it
+        was, so a warmed engine serves token for token what a cold one
+        would.  Returns the report ``{"programs", "wall_s", "tasks",
+        "cache_dir"}``; ``block=False`` runs on a background thread and
+        returns its Future (``step()`` runs between tasks, and a request
+        it serves builds what it needs first).  ``cache_dir`` and
+        ``max_workers > 1`` raise (``ROADMAP.md`` §C)."""
+        tasks = self._warmup_tasks()
+        kw = dict(cache_dir=cache_dir, max_workers=max_workers,
+                  lock=self._lock)
+        if block:
+            return run_warmup(tasks, **kw)
+        return warmup_async(tasks, **kw)
+
+    def _task(self, label, build):
+        return WarmupTask(label,
+                          lambda: self._cached_prog(label, build).compile())
+
+    def _prefill_seg_tasks(self):
+        """Prefill-bucket and segment tasks — one enumeration shared by
+        the contiguous and paged grids."""
+        tasks = []
+        chunk = self.prefill_chunk
+        for P in self.buckets:
+            if chunk is not None and P > chunk:
+                continue                  # chunked buckets use seg programs
+            tasks.append(self._task(f"prefill:{P}",
+                                    partial(self._build_prefill, P)))
+        if chunk is not None:
+            combos = sorted({(i == 0, i == P // chunk - 1)
+                             for P in self.buckets if P > chunk
+                             for i in range(P // chunk)})
+            for first, last in combos:
+                tasks.append(self._task(
+                    f"seg:{chunk}:{int(first)}{int(last)}",
+                    partial(self._build_seg, first, last)))
+        return tasks
+
+    def _warmup_tasks(self):
+        return self._prefill_seg_tasks() + [
+            self._task("decode", partial(self._build_decode, ()))]
 
     # --------------------------------------------------------- scheduling --
 
@@ -498,7 +720,7 @@ class ContinuousBatchingEngine:
         if not self.per_request:
             return
         self._r_planes[:, slot] = np.asarray(req.sampling, np.float32)
-        self._planes_dev = None
+        self._planes_dirty = True
 
     def _positions_needed(self, P: int, mnt: int) -> int:
         """Worst-case cache positions a request occupies — the bucket plus
@@ -682,13 +904,15 @@ class ContinuousBatchingEngine:
                     "on_token cancel signal failed for request %d", req.id)
 
     def step(self):
-        """One scheduler round (``_step_impl``); an escaping exception
-        counts ``step_errors`` before it propagates."""
-        try:
-            return self._step_impl()
-        except Exception:
-            self._stats.add("step_errors")
-            raise
+        """One scheduler round (``_step_impl``) under the engine's lock
+        (warmup tasks take it too); an escaping exception counts
+        ``step_errors`` before it propagates."""
+        with self._lock:
+            try:
+                return self._step_impl()
+            except Exception:
+                self._stats.add("step_errors")
+                raise
 
     def _step_impl(self):
         """One scheduler round: admit waiting requests into free slots, run
@@ -733,39 +957,29 @@ class ContinuousBatchingEngine:
 
     def _run_decode(self):
         """One ``ticks_per_sync`` decode sync over the engine's cache
-        storage: one host→device copy of every int32 operand, k shared
-        ticks whose tokens stay on the device, one device→host read of the
-        (k, S) block.  Returns (active_before, block) or None if no slot
-        could decode."""
+        storage: the decode program on one host→device copy of every int32
+        operand, k shared ticks whose tokens stay on the device, one
+        device→host read of the (k, S) block.  Returns (active_before,
+        block) or None if no slot could decode."""
         if not self._prepare_decode():
             return None
         self._stats.add("decode_syncs")
-        S = self.S
         active_before = self._active.copy()
         extra = self._decode_extra_operands()
         emitted0 = np.asarray([len(r.generated) if r is not None else 0
                                for r in self._slot_req], np.int32)
-        host = np.concatenate(
-            [self._tok, self._t, self._pad, active_before.astype(np.int32),
-             emitted0] + [e.ravel() for e in extra])
-        dev = torch.from_numpy(host).to(self.device)
-        tok, ts, pads, act, emitted, *rest = torch.split(
-            dev, [S] * 5 + [e.size for e in extra])
-        active = act.bool()
-        blk = []
-        with torch.no_grad():
-            caches = self._decode_caches(
-                active, *(r.view(e.shape) for r, e in zip(rest, extra)))
-            for i in range(self.ticks_per_sync):
-                tok = self._decode_tick(caches, tok, ts + i, pads, active,
-                                        emitted + i)
-                blk.append(tok)
-            blk = torch.stack(blk)
+        state = np.stack([self._tok, self._t, self._pad,
+                          active_before.astype(np.int32), emitted0])
+        shapes = tuple(e.shape for e in extra)
+        blk = self._dispatch(self._decode_key(shapes),
+                             partial(self._build_decode, shapes), state,
+                             *extra)
         return active_before, blk.cpu().numpy()
 
     def metrics(self) -> Dict[str, float]:
         """Finished/cancelled request counts, tokens, mean time to first
-        token, mean request latency, lifetime tokens/s, step errors."""
+        token, mean request latency, lifetime tokens/s, step errors, and
+        the program cache's hits and misses."""
         s = self._stats
         nreq = int(s.value("requests_finished"))
         n = max(nreq, 1)
@@ -777,7 +991,9 @@ class ContinuousBatchingEngine:
                 "mean_ttft_s": float(s.value("ttft_seconds_sum")) / n,
                 "mean_latency_s": float(s.value("latency_seconds_sum")) / n,
                 "tokens_per_sec": toks / dt,
-                "step_errors": int(s.value("step_errors"))}
+                "step_errors": int(s.value("step_errors")),
+                "compile_hits": self._compile_hits,
+                "compile_misses": self._compile_misses}
 
     def run_to_completion(self, max_ticks: Optional[int] = None
                           ) -> Dict[int, List[int]]:

@@ -35,27 +35,34 @@ slot's next-token row, then admission-prefill chunks oldest-first in the
 remaining budget.  The model runs the pack through ``decode_ragged`` (k/v
 written straight into pool blocks, attention by the Hopper ragged kernel on
 the card), then one (S,)-row sampler draws each decode slot's next token and
-each completed prompt's first token.  Steps run eagerly and update the pools
-in place; each step copies its host-built metadata to the device once and
-reads the sampled tokens back once.
+each completed prompt's first token.  A step is ONE program per (token
+budget, table width) bucket (``ragged_step:{T}:{C}``; on a card a CUDA
+graph) that updates the pools in place; each step copies its host-built
+metadata to the device once and reads the sampled tokens back once.
 
 With ``draft_model``/``draft_k`` the ragged engine speculates inside the
 pack: a speculating slot claims K extra rows after its next-token row (the
-verify chunk at kv positions [t, t+K]); a step then runs, eagerly, (1) the
-draft's K greedy proposal steps through ``decode_step`` over its own pool
-(same tables and allocator as the target; the table gated to speculating
-rows, so everyone else writes to trash block 0; attention by the paged
-decode kernel on the card), (2) the proposals scattered into the pack on
-the device, (3) the target's ``decode_ragged`` over the whole pack, (4)
-the draft's ``decode_ragged`` over the same pack (its pool stays current
-with prompts and accepted tokens), (5) ``greedy_verify`` — and reads the
-accepted counts and token blocks back once.  Streams equal plain greedy
-decode token for token.
+verify chunk at kv positions [t, t+K]); a step is then ONE program per
+bucket (``ragged_spec:{T}:{C}``) that runs (1) the draft's K greedy
+proposal steps through ``decode_step`` over its own pool (same tables and
+allocator as the target; the table gated to speculating rows, so everyone
+else writes to trash block 0; attention by the paged decode kernel on the
+card) — every step, whether or not a slot speculates, (2) the proposals
+scattered into the pack on the device (non-speculating slots' into a
+scratch row past the pack), (3) the target's ``decode_ragged`` over the
+whole pack, (4) the draft's ``decode_ragged`` over the same pack (its pool
+stays current with prompts and accepted tokens), (5) ``greedy_verify`` —
+and reads the accepted counts and token blocks back once.  Streams equal
+plain greedy decode token for token.
 
 Every engine here takes the base engine's sampling planes
 (``repetition_penalty``, ``min_new_tokens``, ``per_request_sampling``;
-speculation is greedy-only).  Left for later: the tiered ``kv_store``
-(ROADMAP A6), tracing/telemetry, warmup as CUDA graphs and the mesh.
+speculation is greedy-only) and the base engine's programs
+(``serving.py``): the paged engine adds ``decode:{C}`` for every table
+width C in ``pow2_grid(max_len // block_size)`` and the prefix-hit
+programs ``cpre:{P}:{F}``, built on first dispatch and outside the grid,
+as in the reference.  Left for later: the tiered ``kv_store`` (ROADMAP
+A6), tracing/telemetry and the mesh.
 """
 
 from __future__ import annotations
@@ -66,13 +73,15 @@ import logging
 import math
 import time
 import warnings
+from functools import partial
 from typing import Optional
 
 import numpy as np
 import torch
 
-from .jit.bucketing import pow2_bucket, select_bucket
+from .jit.bucketing import pow2_bucket, pow2_grid, select_bucket
 from .models._decode import PagedKV, greedy_verify
+from .ops.paged_attention import reserve_workspace
 from .ops.ragged_paged_attention import ragged_plan
 from .serving import (ContinuousBatchingEngine, _default_buckets,
                       _map_planes)
@@ -406,29 +415,52 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
 
     # ---------------------------------------------------- device programs --
 
-    def _store_prompt_kv(self, slot, P, new):
+    def _before_first_capture(self):
+        """Reserve the paged decode kernel's workspace on the capture
+        stream for the widest table (``reserve_workspace``), for every
+        floating-point pool the kernel walks."""
+        for c in self._paged_decode_configs():
+            if c.kv_cache_dtype == "int8":
+                continue                   # int8 pools take the gather path
+            nh = c.num_attention_heads
+            reserve_workspace(self.device, self._capture_stream.cuda_stream,
+                              self.S, nh, c.hidden_size // nh,
+                              getattr(torch, c.compute_dtype).itemsize,
+                              self.bs, self.MB)
+
+    def _paged_decode_configs(self):
+        """Configs of the models whose pools the paged decode kernel walks
+        inside this engine's programs."""
+        return [self.model.config]
+
+    def _prefill_extra(self, slot, P):
+        return (self._table[slot, :P // self.bs],)
+
+    def _seg_extra(self, slot):
+        return (self._table[slot],)
+
+    def _store_prompt_kv(self, slot, P, new, live, blkrow):
         """A prefill's fresh k/v (L, 1, P, …), cut into blocks, into the
-        slot's first P/bs pool blocks (already ensured)."""
+        slot's first P/bs pool blocks ``blkrow`` (already ensured; inert
+        operands give a zero row: trash)."""
         nblk = P // self.bs
-        blkrow = torch.from_numpy(
-            self._table[slot, :nblk].astype(np.int64)).to(self.device)
+        idx = blkrow.long()
 
         def put(pool, n):
-            pool[:, blkrow] = n.reshape((n.shape[0], nblk, self.bs)
-                                        + tuple(n.shape[3:]))
+            pool[:, idx] = n.reshape((n.shape[0], nblk, self.bs)
+                                     + tuple(n.shape[3:]))
 
         for pool, n in zip(self.caches, new):
             _map_planes(put, pool, n)
 
-    def _suffix_prefill(self, slot, toks, t0, pad):
-        """Chunk prefill over the pools: gather the slot's table view,
-        embed+decode the ``toks`` (n,) chunk at positions [t0, t0+n)
-        through the chunk path (attending to everything the table already
-        holds), scatter the span back.  Returns the chunk's hidden
-        states."""
+    def _suffix_prefill(self, slot, toks, t0, pad, tab):
+        """Chunk prefill over the pools: gather the slot's table view
+        (``tab``, its (MB,) table row), embed+decode the ``toks`` (n,)
+        chunk at positions [t0, t0+n) (``t0`` a (1,) tensor) through the
+        chunk path (attending to everything the table already holds),
+        scatter the span back.  Returns the chunk's hidden states."""
         bs = self.bs
-        tab = torch.from_numpy(self._table[slot].astype(np.int64)) \
-            .to(self.device)
+        tab = tab.long()
 
         def take(p):
             g = p[:, tab]                        # (L, MB, bs, …)
@@ -441,15 +473,17 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
 
         m = self.model
         ck_s, cv_s = view(self.caches[0]), view(self.caches[1])
-        h = m._embed_chunk(toks, t0, pad_lens=pad)
+        h = m._embed_chunk(toks[None], t0, pad_lens=pad)
         h, _ = m.decode_step(h, (ck_s, cv_s), t0, pad_lens=pad)
-        span = t0 + torch.arange(toks.shape[0], device=self.device)
+        span = t0.long() + torch.arange(toks.shape[0], device=self.device)
         pb = tab[torch.div(span, bs, rounding_mode="floor").clamp(
             max=tab.shape[0] - 1)]
         off = span % bs
+        # an inert clock past max_len reads a clamped row (into trash)
+        src = span.clamp(max=tab.shape[0] * bs - 1)
 
         def put(pool, v):
-            pool[:, pb, off] = v[:, 0, span]
+            pool[:, pb, off] = v[:, 0, src]
 
         for pool, v in zip(self.caches, (ck_s, cv_s)):
             _map_planes(put, pool, v)
@@ -467,6 +501,19 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
 
     def _decode_extra_operands(self):
         return (self._table[:, :self._view_cols()],)
+
+    def _decode_key(self, extra_shapes):
+        return f"decode:{extra_shapes[0][1]}"
+
+    def _warmup_tasks(self):
+        """The shared prefill/segment enumeration plus one decode program
+        per table width: ``pow2_grid(MB)`` is the exact set ``_view_cols``
+        can select.  Prefix-hit programs (``cpre:{P}:{F}``) are built on
+        first dispatch: their grid depends on the data."""
+        return self._prefill_seg_tasks() + [
+            self._task(f"decode:{C}",
+                       partial(self._build_decode, ((self.S, C),)))
+            for C in pow2_grid(self.MB)]
 
     def _decode_caches(self, active, table, pools=None):
         """Both pools (the engine's own, or ``pools``) wrapped in
@@ -513,15 +560,29 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         self._admit_seq[slot] = self._seq
         return F
 
+    def _build_cpre(self, P, F):
+        """Program ``cpre:{P}:{F}``: prefix-hit admission of bucket P with
+        F cached blocks — operands ids (P,), (slot, pad, t0, live) and the
+        slot's (MB,) table row."""
+        t0s = F * self.bs
+
+        def fn(ids, meta, tab):
+            slot, pad, t0, live = self._meta(meta)
+            h = self._suffix_prefill(slot, ids[t0s:], t0, pad, tab)
+            self._seed_presence(slot, ids[None], pad, live)
+            return self._first_token(h[:, -1:], slot, live)
+
+        return self._program(f"cpre:{P}:{F}", fn, [(P,), (4,), (self.MB,)],
+                             [np.zeros(P), [0, 0, self.max_len, 0],
+                              np.zeros(self.MB)])
+
     def _run_cached_prefill(self, slot, req, P, pad, ids, F):
         """Prefix-hit admission: run only the suffix [F·bs, P) through the
         chunk path, attending to the shared prefix through the slot's
         table; the presence row seeds from the FULL prompt."""
-        t0 = F * self.bs
-        ids_t, pad_t = self._i32([ids]), self._i32([pad])
-        h = self._suffix_prefill(slot, ids_t[0, t0:], t0, pad_t)
-        self._seed_presence(slot, ids_t, pad_t)
-        tok0 = self._first_token(h[:, -1:], slot)
+        tok0 = self._dispatch(f"cpre:{P}:{F}", partial(self._build_cpre, P, F),
+                              ids, (slot, pad, F * self.bs, 1),
+                              self._table[slot])
         self._register_prompt_blocks(slot, ids, pad, P)
         self._activate(slot, req, P, pad, int(tok0))
 
@@ -776,7 +837,8 @@ class RaggedPagedContinuousBatchingEngine(PagedContinuousBatchingEngine):
             self._t[slot] = 0
             # presence seeds from the FULL prompt (shared prefix tokens
             # count for the penalty although their rows never run)
-            self._seed_presence(slot, self._i32([req.prompt]), None)
+            self._seed_presence(slice(slot, slot + 1),
+                                self._i32([req.prompt]), None)
             self._filling[slot] = {"req": req, "ids": ids, "pad": pad,
                                    "P": P, "filled": F * self.bs}
 
@@ -911,40 +973,79 @@ class RaggedPagedContinuousBatchingEngine(PagedContinuousBatchingEngine):
                 self._activate(slot, st["req"], st["P"], st["pad"],
                                int(first[slot]))
 
-    def _ship(self, C, *host):
-        """One host→device copy of a step's int32 operands and the pack's
-        ``ragged_plan`` (built here on the host from rows 1-2 and the
-        pads); returns the device views, in order, then the (S, C) table
-        and the plan."""
-        plan = ragged_plan(torch.from_numpy(host[1]),
-                           torch.from_numpy(host[2]),
-                           torch.from_numpy(self._pad)).numpy()
-        parts = [np.asarray(h, np.int32).ravel() for h in host] \
-            + [self._table[:, :C].ravel(), plan.ravel()]
-        dev = torch.from_numpy(np.concatenate(parts)).to(self.device)
-        out = list(torch.split(dev, [p.size for p in parts]))
-        out[-2] = out[-2].view(self.S, C)
-        out[-1] = out[-1].view(plan.shape)
-        return out
+    def _plan(self, row_seq, row_pos, pads):
+        """The pack's ``ragged_plan``, built on the host (it depends on the
+        rows and pads only) and shipped with the other operands."""
+        return ragged_plan(torch.from_numpy(np.asarray(row_seq, np.int32)),
+                           torch.from_numpy(np.asarray(row_pos, np.int32)),
+                           torch.from_numpy(np.asarray(pads, np.int32))
+                           ).numpy()
 
-    def _run_pack(self, toks, row_seq, row_pos, C, sample_rows,
-                  sample_active, emitted0):
-        """The device half of a plain step: one host→device copy, embed →
-        all layers → head over the S sampled rows → ``_sample_tail`` (only
-        sampled rows join their presence rows), one device→host read of
-        the (S,) tokens.  Rows of slots with nothing to sample read a
-        dummy row (computed, ignored)."""
-        toks_d, seq_d, pos_d, pad_d, samp_d, sact_d, emit_d, table, plan = \
-            self._ship(C, toks, row_seq, row_pos, self._pad, sample_rows,
-                       sample_active, emitted0)
+    def _inert_rows(self, C):
+        """Inert pack rows for a C-wide program: every row on slot 0, whose
+        table row is zero (writes land in trash block 0), at positions
+        across the table; nothing sampled.  Returns (row_seq, row_pos,
+        pads, plan)."""
+        T = self.token_budget
+        seq = np.zeros(T, np.int32)
+        pos = np.minimum(np.arange(T), C * self.bs - 1).astype(np.int32)
+        pads = np.zeros(self.S, np.int32)
+        return seq, pos, pads, self._plan(seq, pos, pads)
+
+    def _build_ragged(self, C):
+        """Program ``ragged_step:{T}:{C}``: the device half of a plain step
+        — embed → all layers → head over the S sampled rows →
+        ``_sample_tail`` (only sampled rows join their presence rows);
+        returns the (S,) tokens.  Rows of slots with nothing to sample
+        read a dummy row (computed, ignored)."""
+        T, S = self.token_budget, self.S
         m = self.model
-        with torch.no_grad():
+
+        def fn(toks_d, seq_d, pos_d, pad_d, samp_d, sact_d, emit_d, table,
+               plan):
             h = m._embed_ragged(toks_d, seq_d, pos_d, pad_d)
             h, _ = m.decode_ragged(h, self.caches, table, seq_d, pos_d,
                                    pad_d, plan)
             logits = m.decode_logits(h[0, samp_d.long()][:, None])[:, -1]
-            ntok = self._sample_tail(logits, None, emit_d, sact_d.bool())
+            return self._sample_tail(logits, None, emit_d, sact_d.bool())
+
+        seq, pos, pads, plan = self._inert_rows(C)
+        z = np.zeros(S, np.int32)
+        return self._program(
+            f"ragged_step:{T}:{C}", fn,
+            [(T,)] * 3 + [(S,)] * 4 + [(S, C), plan.shape],
+            [np.zeros(T), seq, pos, pads, z, z, z, np.zeros((S, C)), plan])
+
+    def _run_pack(self, toks, row_seq, row_pos, C, sample_rows,
+                  sample_active, emitted0):
+        """A plain step's program on one host→device copy of its operands
+        (the plan built here), then one device→host read of the (S,)
+        tokens."""
+        T = self.token_budget
+        ntok = self._dispatch(
+            f"ragged_step:{T}:{C}", partial(self._build_ragged, C), toks,
+            row_seq, row_pos, self._pad, sample_rows, sample_active,
+            emitted0, self._table[:, :C],
+            self._plan(row_seq, row_pos, self._pad))
         return ntok.cpu().numpy()
+
+    def _warmup_tasks(self):
+        """One program per (token_budget, table width): ``pow2_grid(MB)``
+        is every width ``_build_pack`` can select, so a warmed engine
+        never builds a program while it serves.  With a draft model the
+        fused draft+verify program takes the plain one's place, bucket for
+        bucket."""
+        T = self.token_budget
+        if self.draft_model is not None:
+            kind, build = "ragged_spec", self._build_spec
+        else:
+            kind, build = "ragged_step", self._build_ragged
+        return [self._task(f"{kind}:{T}:{C}", partial(build, C))
+                for C in pow2_grid(self.MB)]
+
+    def _paged_decode_configs(self):
+        return ([] if self.draft_model is None
+                else [self.draft_model.config])
 
     # ------------------------------------------- speculative ragged step --
 
@@ -991,38 +1092,27 @@ class RaggedPagedContinuousBatchingEngine(PagedContinuousBatchingEngine):
             self._table[slot, c] = 0
         self._nblk[slot] = keep
 
-    def _spec_step(self, toks, row_seq, row_pos, C, sample_rows, spec_row0,
-                   spec_active):
-        """The device half of a speculative step, eager: (1) the draft
-        proposes K greedy tokens a speculating slot with ``decode_step``
-        over its pool (``_decode_caches`` gates the table to speculating
-        rows; skipped when none speculates), (2) the proposals are
-        scattered into the pack, (3) the target runs the whole pack, (4)
-        the draft takes in the same pack, (5) ``greedy_verify`` over each
-        slot's K+1 rows (a plain slot gathers its one row K+1 times; its
-        lead is forced to 0).  The plan is built on the host before the
-        step (it depends on rows and pads only); one device→host read of
-        (lead, block) ends it."""
-        K, S = self.K, self.S
-        sl = np.flatnonzero(spec_active)
-        # proposal j of slot s goes to pack row spec_row0[s] + j
-        drow = (spec_row0[sl][:, None] + np.arange(K)).ravel()
-        dsrc = (sl[:, None] * K + np.arange(K)).ravel()
-        grows = sample_rows[:, None] \
-            + np.arange(K + 1)[None] * spec_active[:, None]
-        (toks_d, seq_d, pos_d, pad_d, tok_d, t_d, sact_d, grows_d, drow_d,
-         dsrc_d, table, plan) = self._ship(
-            C, toks, row_seq, row_pos, self._pad, self._tok, self._t,
-            spec_active, grows, drow, dsrc)
+    def _build_spec(self, C):
+        """Program ``ragged_spec:{T}:{C}``: the device half of a
+        speculative step — (1) the draft proposes K greedy tokens a slot
+        with ``decode_step`` over its pool (``_decode_caches`` gates the
+        table to speculating rows: the others write to trash; it runs
+        every step, whether or not a slot speculates), (2) the proposals
+        are scattered into the pack (a non-speculating slot's into the
+        scratch row T, past the pack), (3) the target runs the whole pack,
+        (4) the draft takes in the same pack, (5) ``greedy_verify`` over
+        each slot's K+1 rows (a plain slot gathers its one row K+1 times;
+        its lead is forced to 0).  Returns (S, K+2): the lead, then the
+        token block."""
+        K, S, T = self.K, self.S, self.token_budget
         m, dm = self.model, self.draft_model
-        spec = sact_d.bool()
-        with torch.no_grad():
-            if len(sl):
-                d = self._draft_propose(tok_d, t_d, pad_d, spec, table)
-                toks_d[drow_d.long()] = d.reshape(-1)[dsrc_d.long()] \
-                    .to(toks_d.dtype)
-            else:
-                d = torch.zeros((S, K), dtype=torch.long, device=self.device)
+
+        def fn(toks_x, seq_d, pos_d, pad_d, tok_d, t_d, sact_d, grows_d,
+               drow_d, table, plan):
+            spec = sact_d.bool()
+            d = self._draft_propose(tok_d, t_d, pad_d, spec, table)
+            toks_x[drow_d.long()] = d.reshape(-1).to(toks_x.dtype)
+            toks_d = toks_x[:T]
             h = m._embed_ragged(toks_d, seq_d, pos_d, pad_d)
             h, _ = m.decode_ragged(h, self.caches, table, seq_d, pos_d,
                                    pad_d, plan)
@@ -1032,8 +1122,36 @@ class RaggedPagedContinuousBatchingEngine(PagedContinuousBatchingEngine):
             h_s = h[0, grows_d.long().view(S, K + 1)]       # (S, K+1, H)
             tpred = torch.argmax(m.decode_logits(h_s), -1)  # (S, K+1)
             lead, block = greedy_verify(d, tpred, active=spec)
-            out = torch.cat([lead[:, None].to(block.dtype), block], 1) \
-                .cpu().numpy()
+            return torch.cat([lead[:, None].to(block.dtype), block], 1)
+
+        seq, pos, pads, plan = self._inert_rows(C)
+        z = np.zeros(S, np.int32)
+        return self._program(
+            f"ragged_spec:{T}:{C}", fn,
+            [(T + 1,), (T,), (T,)] + [(S,)] * 4
+            + [(S * (K + 1),), (S * K,), (S, C), plan.shape],
+            [np.zeros(T + 1), seq, pos, pads, z, z, z,
+             np.zeros(S * (K + 1)), np.full(S * K, T), np.zeros((S, C)),
+             plan])
+
+    def _spec_step(self, toks, row_seq, row_pos, C, sample_rows, spec_row0,
+                   spec_active):
+        """A speculative step's program on one host→device copy of its
+        operands (the plan built here: it depends on rows and pads only),
+        then one device→host read of (lead, block)."""
+        K, S, T = self.K, self.S, self.token_budget
+        sl = np.flatnonzero(spec_active)
+        # proposal j of slot s goes to pack row spec_row0[s] + j; the
+        # other slots' proposals to the scratch row T
+        drow = np.full((S, K), T, np.int32)
+        drow[sl] = spec_row0[sl][:, None] + np.arange(K)
+        grows = sample_rows[:, None] \
+            + np.arange(K + 1)[None] * spec_active[:, None]
+        out = self._dispatch(
+            f"ragged_spec:{T}:{C}", partial(self._build_spec, C),
+            np.append(toks, 0), row_seq, row_pos, self._pad, self._tok,
+            self._t, spec_active, grows, drow, self._table[:, :C],
+            self._plan(row_seq, row_pos, self._pad)).cpu().numpy()
         return out[:, 0], out[:, 1:]
 
     def _draft_propose(self, tok, t, pads, spec, table):

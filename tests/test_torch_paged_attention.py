@@ -242,6 +242,33 @@ class TestTileSizing:
         finally:
             tpa._workspaces.pop((dev, key), None)
 
+    @pytest.mark.parametrize("S,nh,hd,el,bs,MB", [
+        (8, 12, 64, 2, 32, 20),      # the phase-12 bucketed serve
+        (8, 12, 64, 2, 16, 32),      # the speculative serve's draft
+        (4, 4, 16, 4, 8, 4),
+        (3, 2, 128, 4, 4, 9),
+    ])
+    def test_workspace_reserved_for_the_widest_table(self, S, nh, hd, el,
+                                                     bs, MB):
+        """``reserve_workspace`` sizes the workspace for MB columns before
+        any graph captures a launch: every narrower launch then reuses the
+        same tensors, so no launch reallocates (and frees) memory that a
+        captured graph still points at."""
+        dev = torch.device("cpu")
+        key = object()
+        try:
+            part, tickets = tpa.reserve_workspace(dev, key, S, nh, hd, el,
+                                                  bs, MB)
+            sizes = [tpa._launch_plan(S, nh, hd, el, bs, C)[1:]
+                     for C in range(1, MB + 1)]
+            assert sizes == sorted(sizes)        # growing with C
+            assert (part.numel(), tickets.numel()) == sizes[-1]
+            for n_part, n_tickets in sizes:
+                again = tpa._workspace(dev, key, n_part, n_tickets)
+                assert again[0] is part and again[1] is tickets
+        finally:
+            tpa._workspaces.pop((dev, key), None)
+
 
 def _pools(seed, quantized, L=None, NB1=9, bs=4, nh=2, hd=8):
     rng = np.random.RandomState(seed)
