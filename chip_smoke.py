@@ -205,6 +205,26 @@ Phases (any failure exits non-zero before the result lines):
    a repeat, the allocator balanced, a page from the card round-tripping
    ``to_bytes`` bit for bit, the kernels launched L times a step; TTFT
    p50 cold, DRAM restore and disk restore printed.
+18. telemetry at full width (gpt2-small bf16, seed 0): phase 3's ragged
+   serve with graphs, untraced and traced (``telemetry.Tracer``), served
+   in the order untraced, traced, traced, untraced: token streams equal,
+   no program built while serving and every compile event of the
+   warmup ``expected``, each request's tracer TTFT inside its host
+   interval from ``add_request`` to the ``on_token`` of its first token;
+   TTFT and ITL p50/p99 under the 2-arrivals-a-step load, traced against
+   untraced ms/step and each traced serve's goodput (a ``RunLedger``
+   reset just before it; its ``compute`` equal to the serve's tick walls)
+   printed;
+   a ``MemoryLedger`` census of that engine (``kv_pages`` bytes equal to
+   the pools', ``params`` to the parameters', ``device_allocator_stats()``
+   non-empty, ``torch.cuda.memory_allocated()`` beside it); phase 12's
+   bucketed paged serve traced (tick ``decode_rows`` x ``ticks_per_sync``
+   equal to the tokens emitted, launches exact); phase 6's gpt2s step
+   under a ``TrainMonitor`` and a ``RunLedger`` for 4 steps and one loss
+   fetch (1 compile event, 3 step samples of B·L tokens, the monitor's
+   tokens/s beside the wall clock's, the goodput), then 2 more monitored
+   steps under a host-side ``torch.profiler`` trace: each step's host
+   dispatch and the CUDA runtime calls by their host time.
 
 Then each kernel is timed at its main path's shapes beside its plain
 version, one PyTorch call computing the same function (``library_ms``,
@@ -218,9 +238,12 @@ alone, for the fused LN forward and its autograd backward for the LN
 backward; ``torch._fused_adamw_`` on one flat tensor for the AdamW sweep)
 and its memory/compute bound.  Every launch runs with the L2 cache
 flushed.  The kernels JSON counts the main paths' launches (phases 3, 6,
-9 and 12) plus phase 17's: ``flash_fwd`` in generation's prefills, the
-ragged and paged decode kernels in the tiered store's serves.  The last
-two lines are the kernels JSON and the device JSON.
+9 and 12) plus phase 17's (``flash_fwd`` in generation's prefills, the
+ragged and paged decode kernels in the tiered store's serves) and phase
+18's (the ragged kernel in its four serves, the paged decode kernel and
+``flash_fwd`` in its bucketed serve, the three flash kernels in its 4
+train steps).  The last two lines are the kernels JSON and the device
+JSON.
 
 Without CUDA, or run without the rest of the repository, it exits
 non-zero and prints no result.
@@ -1800,10 +1823,10 @@ def bucketed_serve():
     max_len = P + -(-max(n for _, n in reqs) // k) * k
     max_len = -(-max_len // blk) * blk
 
-    def paged():
+    def paged(**kw):
         return PagedContinuousBatchingEngine(
             model, max_slots=S, max_len=max_len, block_size=blk,
-            prompt_buckets=[P], ticks_per_sync=k, device="cuda")
+            prompt_buckets=[P], ticks_per_sync=k, device="cuda", **kw)
     return model, reqs, max_len, paged
 
 
@@ -2989,6 +3012,303 @@ def phase17(card):
         f"{ragged}, paged decode {paged}, flash_fwd {flash}")
     return ragged, paged, flash
 
+
+# ------------------------------------------------------------ phase 18 --
+
+def arrivals_serve(eng, reqs, t_add, t_first):
+    """Phase 3's load on a warmed engine: 2 arrivals a step, each
+    request's host clock taken at ``add_request`` (``t_add[rid]``) and at
+    the ``on_token`` of its first token (``t_first[rid]``).  Returns (wall
+    s, {rid: tokens}, ragged steps)."""
+    def on_token(rid, tok, done):
+        if tok is not None and rid not in t_first:
+            t_first[rid] = time.monotonic()
+
+    steps0, added = eng.ragged_steps, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while added < len(reqs) or eng.pending():
+        for _ in range(2):
+            if added < len(reqs):
+                p, n = reqs[added]
+                t = time.monotonic()
+                t_add[eng.add_request(p, n, on_token=on_token)] = t
+                added += 1
+        eng.step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0, eng.pop_finished(),
+            eng.ragged_steps - steps0)
+
+
+def phase18_ragged(model, card):
+    """(a) phase 3's ragged serve with graphs, untraced and traced (serves
+    in the order untraced, traced, traced, untraced); (c) a memory ledger
+    attached to the traced engine.  Returns the ragged kernel's
+    launches."""
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    from paddle_tpu_torch.serving_paged import \
+        RaggedPagedContinuousBatchingEngine
+    from paddle_tpu_torch.telemetry import Tracer
+    from paddle_tpu_torch.telemetry_ledger import RunLedger
+    from paddle_tpu_torch.telemetry_memory import (MemoryLedger,
+                                                   device_allocator_stats)
+
+    L = model.config.num_layers
+    reqs = serving_traffic(model.config.vocab_size)
+    kw = dict(max_slots=8, max_len=512, block_size=16,
+              prompt_buckets=[64, 128], token_budget=256, device="cuda")
+    tr = Tracer(capacity=1 << 15)
+    engs = {"untraced": RaggedPagedContinuousBatchingEngine(model, **kw),
+            "traced": RaggedPagedContinuousBatchingEngine(model, tracer=tr,
+                                                          **kw)}
+    for eng in engs.values():
+        warm(eng)
+    led = engs["traced"].attach_ledger(RunLedger())
+    comp = tr.events("compile")
+    check(comp and all(e["expected"] and not e["hit"] for e in comp),
+          f"phase18: warmup compile events {comp} not all expected misses")
+    misses = {k: e.metrics()["compile_misses"] for k, e in engs.items()}
+    walls = {k: [] for k in engs}
+    clocks = {k: ({}, {}) for k in engs}        # rid -> host add, first
+    streams, launches, goodput = {}, 0, []
+    for arm in ("untraced", "traced", "traced", "untraced"):
+        eng = engs[arm]
+        rpa.ragged_attention_cuda.launches = 0
+        # the ledger sees the traced engine only: it covers each traced
+        # serve alone, from just before to just after it
+        led.reset()
+        n_ticks = len(tr.events("tick"))
+        wall, got, steps = arrivals_serve(eng, reqs, *clocks[arm])
+        if arm == "traced":
+            snap = led.snapshot()
+            tick_s = sum(e["dur_s"] for e in tr.events("tick")[n_ticks:])
+            check(abs(snap["buckets_s"]["compute"] - tick_s) < 1e-6,
+                  f"phase18: ledger compute {snap['buckets_s']['compute']} "
+                  f"!= the serve's tick walls {tick_s}")
+            goodput.append((snap["goodput"], snap["elapsed_s"], tick_s, wall))
+        n = rpa.ragged_attention_cuda.launches
+        check(n == L * steps > 0, f"phase18 {arm}: ragged launches {n} != "
+                                  f"{L} x {steps} steps")
+        launches += n
+        check(sorted(len(v) for v in got.values())
+              == sorted(b for _, b in reqs), f"phase18 {arm}: budgets")
+        s = [got[r] for r in sorted(got)]
+        check(streams.setdefault(arm, s) == s,
+              f"phase18 {arm}: two serves of one engine differ")
+        walls[arm].append((wall, steps))
+    check(streams["traced"] == streams["untraced"],
+          "phase18: traced and untraced token streams differ")
+    for k, e in engs.items():
+        check(e.metrics()["compile_misses"] == misses[k],
+              f"phase18 {k}: a program was built while serving")
+    check(len(tr.events("compile")) == len(comp),
+          "phase18: a compile event while serving")
+    # TTFT: the tracer's interval lies inside the host's add_request ->
+    # first on_token interval of the same request
+    t_add, t_first = clocks["traced"]
+    tls = {tl.rid: tl for tl in tr.timelines()}
+    check(len(tls) == 2 * len(reqs) and all(
+        tl.retired_at is not None for tl in tls.values()),
+        "phase18: traced requests missing from the tracer")
+    worst = 0.0
+    for rid, tl in tls.items():
+        q, f = tr.t0 + tl.queued_at, tr.t0 + tl.first_token_at
+        check(t_add[rid] <= q and f <= t_first[rid],
+              f"phase18: request {rid}'s tracer TTFT [{q}, {f}] is not "
+              f"inside its host interval [{t_add[rid]}, {t_first[rid]}]")
+        worst = max(worst, (t_first[rid] - t_add[rid]) - tl.ttft_s)
+    rs = tr.request_summary()
+    ttft, itl = rs["ttft_s"], rs["inter_token_s"]
+    ms = {k: 1e3 * sum(w for w, _ in v) / sum(s for _, s in v)
+          for k, v in walls.items()}
+    say(f"phase18 ragged serve at phase 3's load (2 arrivals a step, "
+        f"graphs) on {card}: TTFT p50 {1e3 * ttft['p50']:.3f} ms p99 "
+        f"{1e3 * ttft['p99']:.3f} ms, ITL p50 {1e3 * itl['p50']:.3f} ms "
+        f"p99 {1e3 * itl['p99']:.3f} ms over {ttft['count']} requests "
+        f"(tracer TTFT at most {1e3 * worst:.3f} ms under the host's); "
+        f"traced {ms['traced']:.3f} ms/step against untraced "
+        f"{ms['untraced']:.3f} ms/step ({ms['traced'] / ms['untraced']:.3f}"
+        f"x, 2 serves each, order U T T U); streams equal 24/24; "
+        f"{len(comp)} expected compile events, none while serving; "
+        f"serving goodput of each traced serve (a RunLedger reset just "
+        f"before it): " + ", ".join(
+            f"{g:.3f} of {e:.3f} s (tick walls {t:.3f} s, the serve's wall "
+            f"{w:.3f} s)" for g, e, t, w in goodput))
+    # (c) the memory ledger on the traced engine
+    eng = engs["traced"]
+    ml = MemoryLedger()
+    eng.attach_memory(ml)
+    gc.collect()
+    t0 = time.perf_counter()
+    c = ml.census()
+    census_s = time.perf_counter() - t0
+    pools = c["pools"]
+    kv = sum(t.numel() * t.element_size() for t in eng.caches)
+    params = sum(p.numel() * p.element_size() for p in model.parameters())
+    check(pools["kv_pages"] == kv, f"phase18: census kv_pages "
+                                   f"{pools['kv_pages']} != pools {kv}")
+    check(pools["params"] == params, f"phase18: census params "
+                                     f"{pools['params']} != {params}")
+    alloc = device_allocator_stats()
+    check(bool(alloc) and alloc["bytes_in_use"] > 0,
+          f"phase18: device_allocator_stats() {alloc}")
+    m = eng.metrics()
+    check(m["memory_device_bytes"] == float(c["total_bytes"]),
+          "phase18: metrics() memory_device_bytes")
+    say(f"phase18 memory census of the ragged engine ({census_s:.3f} s, "
+        f"{c['arrays']} storages on cuda): params {pools['params']} B, "
+        f"kv_pages {pools['kv_pages']} B, other {pools['other']} B, total "
+        f"{c['total_bytes']} B; torch.cuda.memory_allocated() "
+        f"{c['allocated_bytes']} B; allocator bytes_in_use "
+        f"{alloc['bytes_in_use']} B, peak {alloc['peak_bytes_in_use']} B, "
+        f"reserved {alloc['bytes_reserved']} B")
+    return launches
+
+
+def phase18_bucketed(model, reqs, paged, card):
+    """(b) phase 12's bucketed paged serve, traced.  Returns the paged
+    decode kernel's and ``flash_fwd``'s launches."""
+    from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.telemetry import Tracer
+
+    L, k = model.config.num_layers, SERVE_TICKS
+    tr = Tracer(capacity=1 << 15)
+    eng = paged(tracer=tr)
+    wall, got, budgets = serve_upfront(eng, reqs)
+    total = sum(len(v) for v in got.values())
+    check(total == sum(budgets.values()) == 5760,
+          f"phase18 bucketed: {total} tokens")
+    ticks = tr.events("tick")
+    rows = sum(e.get("decode_rows", 0) for e in ticks)
+    check(rows * k == total, f"phase18 bucketed: tick decode_rows {rows} x "
+                             f"ticks_per_sync {k} != {total} tokens")
+    check(sum(e["tokens_emitted"] for e in ticks) == total,
+          "phase18 bucketed: tick tokens_emitted deltas")
+    check(sum(e.get("prefill_tokens", 0) for e in ticks)
+          == SERVE_BUCKET * len(reqs), "phase18 bucketed: prefill tokens")
+    check(not any(e.get("compiles") for e in ticks),
+          "phase18 bucketed: a program was built while serving")
+    syncs = eng.decode_syncs
+    paged_n, flash_n = pa.paged_decode_attention_cuda.launches, \
+        A.flash_fwd_cuda.launches
+    check(paged_n == L * k * syncs and flash_n == L * len(reqs),
+          f"phase18 bucketed: launches paged {paged_n} (not {L} x {k} x "
+          f"{syncs} syncs) flash_fwd {flash_n}")
+    rs = tr.request_summary()
+    say(f"phase18 bucketed paged serve traced (phase 12's settings) on "
+        f"{card}: {total} tokens in {wall:.3f} s, "
+        f"{1e3 * wall / syncs:.3f} ms a sync over {syncs} syncs, "
+        f"decode_rows {rows} x {k} = tokens emitted; TTFT p50 "
+        f"{1e3 * rs['ttft_s']['p50']:.3f} ms p99 "
+        f"{1e3 * rs['ttft_s']['p99']:.3f} ms (all 24 queued up front), ITL "
+        f"p50 {1e3 * rs['inter_token_s']['p50']:.3f} ms p99 "
+        f"{1e3 * rs['inter_token_s']['p99']:.3f} ms (a sync delivers 8 "
+        f"tokens at once); launches paged {paged_n}, flash_fwd {flash_n}")
+    return paged_n, flash_n
+
+
+def phase18_train(card):
+    """(d) phase 6's gpt2s step under a ``TrainMonitor`` and a
+    ``RunLedger``: 4 steps, then one timed loss fetch recorded as the
+    sync; then 2 more monitored steps under a host-side trace, whose CUDA
+    runtime calls say where a step's dispatch waits.  Returns the three
+    flash kernels' launches."""
+    from paddle_tpu_torch.models.gpt import (GPTModel, gpt_preset,
+                                             make_gpt_train_step)
+    from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.telemetry import TrainMonitor
+    from paddle_tpu_torch.telemetry_ledger import RunLedger
+
+    cfg = gpt_preset("gpt2-small", vocab_size=50304,
+                     max_position_embeddings=1024, compute_dtype="bfloat16")
+    Lyr, B, L = cfg.num_layers, 16, 1024
+    model = GPTModel(cfg, device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(0))
+    mon, led = TrainMonitor(), RunLedger()
+    mon.set_ledger(led)
+    step, state = make_gpt_train_step(model, AdamW(3e-4, weight_decay=0.01),
+                                      remat=False, monitor=mon)
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, L))).cuda()
+    y = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, L))).cuda()
+    kernels = (A.flash_fwd_cuda, A.flash_bwd_dq_cuda, A.flash_bwd_dkv_cuda)
+    for k in kernels:
+        k.launches = 0
+    led.reset()
+    losses = []
+    for i in range(4):
+        if i == 1:
+            t0 = time.perf_counter()      # the steady-state window
+        state, loss = step(state, i, 3e-4, x, y)
+        losses.append(loss)
+    ts = time.perf_counter()
+    last = losses[-1].item()              # the log-cadence loss fetch
+    mon.record_sync(time.perf_counter() - ts, loss=last)
+    wall = time.perf_counter() - t0
+    launches = [k.launches for k in kernels]
+    check(launches == [Lyr * 4] * 3,
+          f"phase18 train: flash launches {launches} != {Lyr} x 4")
+    comp, samples = mon.events("compile"), mon.events("train_step")
+    check(len(comp) == 1 and len(samples) == 3
+          and all(e["tokens"] == B * L for e in samples),
+          f"phase18 train: {len(comp)} compile events, {len(samples)} "
+          f"samples")
+    vals = [v.item() for v in losses]
+    check(all(np.isfinite(vals)) and not mon.events("watchdog"),
+          f"phase18 train: losses {vals}")
+    s, snap = mon.summary(), led.snapshot()
+    say(f"phase18 gpt2s train under a TrainMonitor and a RunLedger (B {B}, "
+        f"L {L}, bf16) on {card}: compile event {comp[0]['wall_s']:.3f} s, "
+        f"3 step samples (host dispatch p50 "
+        f"{1e3 * s['step_wall_s']['p50']:.3f} ms), monitor "
+        f"{s['tokens_per_sec']:.1f} tokens/s against the phase's wall clock "
+        f"{3 * B * L / wall:.1f} tokens/s over the same 3 steps and the "
+        f"loss fetch; goodput {snap['goodput']:.3f} (compute "
+        f"{snap['buckets_s']['compute']:.3f} s, compile "
+        f"{snap['buckets_s']['compile']:.3f} s, host_dispatch "
+        f"{snap['buckets_s']['host_dispatch']:.3f} s of "
+        f"{snap['elapsed_s']:.3f} s); losses {[round(v, 4) for v in vals]}")
+    # where the dispatch waits: 2 more monitored steps traced on the host
+    # (the first from a drained queue); the CUDA runtime calls' own host
+    # time splits it between launches and copies or syncs
+    prof = start_profile()
+    for i in (4, 5):
+        state, loss = step(state, i, 3e-4, x, y)
+    report_profile(prof, 2)
+    rt = sorted((e for e in prof.key_averages() if e.key.startswith("cu")),
+                key=lambda e: -e.self_cpu_time_total)
+    disp = [e["dur_s"] for e in mon.events("train_step")[-2:]]
+    say(f"phase18 gpt2s host trace of 2 monitored steps: host dispatch "
+        f"{1e3 * disp[0]:.3f} ms (from a drained queue) and "
+        f"{1e3 * disp[1]:.3f} ms; CUDA runtime calls by host time over both "
+        f"steps: " + "; ".join(
+            f"{e.key} {e.self_cpu_time_total / 1e3:.3f} ms in {e.count}"
+            for e in rt[:6]))
+    launches = [k.launches for k in kernels]
+    check(launches == [Lyr * 6] * 3,
+          f"phase18 train: flash launches {launches} != {Lyr} x 6")
+    return launches
+
+
+def phase18(card):
+    """Telemetry at full width (gpt2-small bf16, seed 0): the ragged and
+    the bucketed paged serves traced, a memory census, and the gpt2s step
+    monitored.  Returns the launches of the ragged kernel, the paged
+    decode kernel and the three flash kernels."""
+    t0 = time.perf_counter()
+    model, reqs, _, paged_engine = bucketed_serve()   # phase 3's model too
+    ragged = phase18_ragged(model, card)
+    gc.collect()
+    paged, flash_fwd = phase18_bucketed(model, reqs, paged_engine, card)
+    del model, paged_engine
+    gc.collect()
+    flash = phase18_train(card)
+    say(f"phase18 took {time.perf_counter() - t0:.1f} s")
+    return ragged, paged, (flash[0] + flash_fwd, *flash[1:])
+
+
 def bytes_ops_bound(nbytes, flops):
     """(ms, "bytes"|"operations") of the larger bound; fp32 flops."""
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -3201,6 +3521,8 @@ def main():
     phase16()
     gc.collect()
     gen_launches = phase17(card)
+    gc.collect()
+    tel_launches = phase18(card)
 
     ms, plain_ms, library_ms, bound_ms, bound_by, _ = t = time_pack(main_pack)
     say_pack_time("bf16 pools at the phase-3 shapes", t, card)
@@ -3242,17 +3564,23 @@ def main():
         f"no trainer): its launches are phase 7's, {adamw_launches}")
 
     say(f"kernel launches: ragged {launches} (phase 3) + {gen_launches[0]} "
-        f"(phase 17's store serves); flash_fwd {flash_launches[0]} (phase "
-        f"6) + {gen_launches[2]} (phase 17's generation prefills); paged "
-        f"decode {decode_launches} (phase 12) + {gen_launches[1]} (phase "
-        f"17's store serves)")
+        f"(phase 17's store serves) + {tel_launches[0]} (phase 18's "
+        f"serves); flash_fwd {flash_launches[0]} (phase 6) + "
+        f"{gen_launches[2]} (phase 17's generation prefills) + "
+        f"{tel_launches[2][0]} (phase 18's admissions and train steps); "
+        f"flash dq/dkv {flash_launches[1:]} (phase 6) + "
+        f"{tel_launches[2][1:]} (phase 18); paged decode {decode_launches} "
+        f"(phase 12) + {gen_launches[1]} (phase 17's store serves) + "
+        f"{tel_launches[1]} (phase 18)")
     say(card)                        # the nvidia-smi name,power.limit line
     pack = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
     rows = [kernel_row("ragged_paged_attention", KERNEL_SOURCE,
-                       KERNEL_REPLACES, launches + gen_launches[0], pack)]
-    flash_launches = (flash_launches[0] + gen_launches[2],
-                      *flash_launches[1:])
+                       KERNEL_REPLACES,
+                       launches + gen_launches[0] + tel_launches[0], pack)]
+    flash_launches = tuple(
+        a + b for a, b in zip((flash_launches[0] + gen_launches[2],
+                               *flash_launches[1:]), tel_launches[2]))
     rows += [kernel_row(name, FLASH_SOURCE, FLASH_REPLACES[name], n, r)
              for (name, r), n in zip(flash.items(), flash_launches)]
     rows += [kernel_row(name, FUSED_SOURCE, FUSED_REPLACES[name], n, r)
@@ -3260,7 +3588,7 @@ def main():
                                      (*ln_launches, adamw_launches))]
     rows.append(kernel_row(
         "paged_decode_attention", PAGED_SOURCE, PAGED_REPLACES,
-        decode_launches + gen_launches[1],
+        decode_launches + gen_launches[1] + tel_launches[1],
         dict(max_abs_err=decode_err, ms=d[0], plain_ms=d[1], library_ms=d[2],
              bound_ms=d[4], bound_by=d[5])))
     say(json.dumps({"kernels": rows}))

@@ -64,6 +64,15 @@ page store:
   (demotion on eviction and ``flush_prefix``, restores at admission,
   ``export_prefix_pages``, ``kvio``)
 - ``utils.stats`` (``snapshot``, ``prometheus_text``)
+
+and the telemetry core, host-side only, wired into the four engines (a
+``tracer=`` each), the tiered store and the GPT train step (``monitor=``):
+
+- ``telemetry`` (``Tracer``, ``TraceContext``, ``RequestTraceIndex``,
+  ``TrainMonitor``, ``instrument_train_step``, the JSONL and Chrome
+  exports), ``telemetry_memory`` (``MemoryLedger``), ``telemetry_ledger``
+  (``RunLedger``, ``FlightRecorder``), ``profiler``, ``utils.stats``
+  (histograms, the process-wide registry)
 """
 
 import torch

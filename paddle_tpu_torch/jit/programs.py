@@ -264,24 +264,30 @@ def _refuse(cache_dir, max_workers):
             f"serial (ROADMAP.md §C); use max_workers=1")
 
 
-def run_warmup(tasks: Sequence[WarmupTask], *, cache_dir=None,
+def run_warmup(tasks: Sequence[WarmupTask], *, tracer=None, cache_dir=None,
                max_workers: int = 1, lock=None,
                logger: Optional[logging.Logger] = None) -> Dict[str, Any]:
     """Execute a warmup plan, one task at a time, each under ``lock`` (the
     engine's step lock: a concurrent ``step()`` runs between tasks, never
-    inside a capture).  Returns the reference's report: ``{"programs",
-    "wall_s", "tasks": [{"label", "wall_s"}, ...], "cache_dir"}``."""
+    inside a capture).  With a ``tracer`` the whole run sits inside its
+    ``expected_compiles`` window, scoped to this grid's labels (a request
+    served concurrently by ``warmup_async`` still arms the recompile-storm
+    warning).  Returns the reference's report: ``{"programs", "wall_s",
+    "tasks": [{"label", "wall_s"}, ...], "cache_dir"}``."""
     _refuse(cache_dir, max_workers)
     log = logger if logger is not None else _log
     lock = lock if lock is not None else contextlib.nullcontext()
+    ctx = (tracer.expected_compiles(keys={t.label for t in tasks})
+           if tracer is not None else contextlib.nullcontext())
     t0 = time.perf_counter()
     results = []
-    for task in tasks:
-        tt = time.perf_counter()
-        with lock:
-            task.run()
-        results.append({"label": task.label,
-                        "wall_s": time.perf_counter() - tt})
+    with ctx:
+        for task in tasks:
+            tt = time.perf_counter()
+            with lock:
+                task.run()
+            results.append({"label": task.label,
+                            "wall_s": time.perf_counter() - tt})
     wall = time.perf_counter() - t0
     log.info("warmup: %d programs in %.2fs", len(results), wall)
     return {"programs": len(results), "wall_s": wall, "tasks": results,

@@ -19,9 +19,9 @@ imports neither torch nor anything of the JAX package).
 - :class:`PageMigration` — the byte-budgeted, restartable page-transfer
   schedule between replicas.
 
-Differences from the reference (``ROADMAP.md`` §C): the memory ledger
-(``telemetry_memory``) is not ported yet, so ``_sync_memory`` is a no-op;
-``tracer`` is anything with ``.emit(kind, **fields)``.  The device-side
+Every tier transition resyncs the active ``telemetry_memory.MemoryLedger``'s
+``kv_pages`` host pool and its dram/disk tiers; ``tracer`` is anything with
+``.emit(kind, **fields)`` (a ``telemetry.Tracer``).  The device-side
 gather and scatter of a page live with the engines in
 ``serving_paged.py``.
 """
@@ -39,6 +39,7 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
+from .telemetry_memory import current_memory_ledger
 from .utils.stats import StatRegistry, prometheus_text as _prometheus_text
 
 __all__ = ["KVPage", "TieredKVStore", "PageMigration", "chain_hex"]
@@ -432,9 +433,18 @@ class TieredKVStore:
         self.tracer.emit("kvstore", what=what, **fields)
 
     def _sync_memory(self):
-        """The reference mirrors the tier byte totals into the active
-        memory ledger (``telemetry_memory``) here.  That module is not
-        ported yet (``ROADMAP.md`` A6 and §C), so this is a no-op."""
+        """Mirror the tier byte totals into the active memory ledger
+        (``telemetry_memory``): every tier transition resyncs the
+        ``kv_pages`` host pool and its dram/disk tier counters as
+        absolute values, so the ledger cannot drift from the store's own
+        accounting.  One attribute check when no ledger is active."""
+        ml = current_memory_ledger()
+        if ml is None:
+            return
+        ml.set_bytes("kv_pages", self._dram_bytes, space="host",
+                     tier="dram")
+        ml.set_bytes("kv_pages", self._disk_bytes, space="host",
+                     tier="disk")
 
     def counters(self) -> Dict[str, float]:
         return dict(self._stats.snapshot())

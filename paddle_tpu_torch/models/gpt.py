@@ -433,12 +433,16 @@ def make_gpt_train_step(model: GPTModel, optimizer, hcg=None,
 
     ``hcg`` is None or a one-device hybrid group.  ``key`` (a
     ``torch.Generator`` or an int) is accepted and not read: GPT's block
-    applies no dropout.  ``monitor`` is accepted and ignored until the
-    telemetry slice; ``dynamic_loss_scale`` and ``virtual_pp_degree`` are
+    applies no dropout.  ``monitor`` (a ``telemetry.TrainMonitor``) wraps
+    the step in ``instrument_train_step(step, monitor, "gpt")``: its first
+    call synchronises the card once and is the compile event, later calls
+    are ``train_step`` samples and add no synchronisation; None returns
+    the bare step.  ``dynamic_loss_scale`` and ``virtual_pp_degree`` are
     ignored on this path, as in the reference's.  Pipeline or model
     parallelism, ZeRO, update sharding, a non-fp32 ``grad_comm`` and
     microbatches raise ``NotImplementedError`` (ROADMAP A7 and A2)."""
     from ..distributed.spmd import make_gspmd_step_from_loss
+    from ..telemetry import instrument_train_step
 
     degrees = _mesh_degrees(hcg)
     if any(d > 1 for d in degrees.values()):
@@ -457,9 +461,10 @@ def make_gpt_train_step(model: GPTModel, optimizer, hcg=None,
         h = model.scan_blocks(model.embed_fn(x, key), key, remat=remat)
         return model.head_loss_fn(h, labels)
 
-    inner, state0 = make_gspmd_step_from_loss(
+    raw, state0 = make_gspmd_step_from_loss(
         loss_of, dict(model.named_parameters()), optimizer,
         zero_stage=zero_stage, donate=donate, grad_comm=grad_comm)
+    inner = instrument_train_step(raw, monitor, "gpt")
 
     def step(state, key, lr, x, labels):
         return inner(state, lr, key, x, labels)

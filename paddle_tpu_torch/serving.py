@@ -45,6 +45,10 @@ slot; on a card a program is one CUDA graph, replayed as one launch.
 ``warmup()`` builds them before traffic, so a warmed engine serves with
 zero program-cache misses.  Programs are cached per engine (a graph binds
 this engine's pools), not per model as in the reference.
+
+With ``tracer=`` (a ``telemetry.Tracer``) every engine emits the
+reference's tick, compile and request events, host-side only: the same
+programs and CUDA graphs run with or without it.
 """
 
 from __future__ import annotations
@@ -66,9 +70,51 @@ from .models._decode import (apply_repetition_penalty, make_row_sampler,
                              make_token_sampler, seed_presence,
                              suppress_eos, suppress_eos_rows,
                              validate_sampler_args)
-from .utils.stats import StatRegistry
+from .utils.stats import StatRegistry, stat_add
+from .utils.stats import prometheus_text as _prometheus_text
 
 __all__ = ["ContinuousBatchingEngine", "Request"]
+
+
+class _FirstDispatchTimer:
+    """A freshly built program whose FIRST dispatch — a call, or the
+    ``compile()`` a warmup task makes — is wall-timed and reported through
+    ``report(seconds)``; later dispatches go straight through.  Installed
+    only on a cache miss with a tracer attached.  The timing adds no
+    device synchronisation: on a card the eager run and the capture
+    synchronise on their own, so the wall ends at the first replay's
+    launch.  ``report`` runs after the dispatch, so the capture never
+    happens under a tracer lock."""
+
+    __slots__ = ("prog", "report", "done")
+
+    def __init__(self, prog, report):
+        self.prog = prog
+        self.report = report
+        self.done = False
+
+    def _timed(self, fn, *a):
+        if self.done:
+            return fn(*a)
+        t0 = time.perf_counter()
+        out = fn(*a)
+        self.done = True
+        self.report(time.perf_counter() - t0)
+        return out
+
+    def __call__(self, *host):
+        return self._timed(self.prog, *host)
+
+    def compile(self):
+        return self._timed(self.prog.compile)
+
+
+def _event_label(key: str) -> str:
+    """A program's label in telemetry events: the reference's
+    ``program_label`` of its key — the kind and its leading sizes.  A
+    segment program's first/last flags are bools in the reference's key,
+    which end the label (task ``seg:8:01``, event ``seg:8``)."""
+    return key.rsplit(":", 1)[0] if key.startswith("seg:") else key
 
 
 def _default_buckets(max_len: int) -> List[int]:
@@ -139,7 +185,13 @@ class ContinuousBatchingEngine:
     ``min_new_tokens``, ``eos_token_id``) become per-request
     ``add_request`` arguments, the constructor's values their defaults;
     they ride per-slot planes, so one sampler call a tick serves any
-    mixture."""
+    mixture.
+
+    ``tracer``: an optional ``telemetry.Tracer``; the engine then emits
+    per-tick, per-compile and per-request events (host-side only — the
+    programs and their CUDA graphs are identical with or without it).
+    None (the default) keeps the scheduler hot path at one attribute
+    check: no event allocation, no tracer lock."""
 
     _SAMPLING_KEYS = ("temperature", "top_k", "top_p", "greedy",
                       "repetition_penalty", "min_new_tokens",
@@ -153,7 +205,8 @@ class ContinuousBatchingEngine:
                  ticks_per_sync: int = 1,
                  prefill_chunk: Optional[int] = None,
                  repetition_penalty: float = 1.0, min_new_tokens: int = 0,
-                 per_request_sampling: bool = False, device=None):
+                 per_request_sampling: bool = False, device=None,
+                 tracer=None):
         self.device = resolve_device(device)
         c = model.config
         p_dev = next(model.parameters()).device
@@ -264,8 +317,14 @@ class ContinuousBatchingEngine:
         self._queue: List[Request] = []
         self._finished: Dict[int, List[int]] = {}
         self._ids = itertools.count()
+        # observability: a private registry per engine (concurrent engines
+        # must not alias counters), the tracer's per-tick notes, and the
+        # attached memory ledger (telemetry_memory.MemoryLedger)
+        self.tracer = tracer
         self._stats = StatRegistry()
         self._started = time.monotonic()
+        self._tick_note: Dict[str, object] = {}
+        self._memory = None
         # programs: a per-engine cache, plain-int counters (reported by
         # metrics()), one graph memory pool and capture stream on a card,
         # and the lock step() and warmup tasks share
@@ -285,20 +344,86 @@ class ContinuousBatchingEngine:
 
     def _cached_prog(self, key: str, build):
         """The engine's program ``key`` (its label), built by ``build()``
-        on a miss; every fetch counts a hit or a miss."""
+        on a miss; every fetch counts a hit or a miss (``_note_prog``).
+        The cache keeps the bare program; only the local return may be
+        timing-wrapped."""
         prog = self._programs.get(key)
         hit = prog is not None
         if not hit:
             prog = self._programs[key] = build()
-        self._note_prog(key, hit)
-        return prog
+        return self._note_prog(key, hit, prog)
 
-    def _note_prog(self, key: str, hit: bool):
-        """Program-cache accounting: two plain-int counters."""
+    def _note_prog(self, key: str, hit: bool, prog):
+        """Program-cache accounting: two plain-int counters (always), and
+        with a tracer attached the program's label joins the tick's
+        ``programs``, a hit counts on the tracer and a miss returns
+        ``prog`` wrapped so its first dispatch reports the compile
+        event."""
         if hit:
             self._compile_hits += 1
         else:
             self._compile_misses += 1
+        tr = self.tracer
+        if tr is None:
+            return prog
+        label = _event_label(key)
+        self._tick_note.setdefault("programs", []).append(label)
+        name = type(self).__name__
+        if hit:
+            tr.compile_event(name, label, True)
+            return prog
+        self._tick_note["compiles"] = \
+            self._tick_note.get("compiles", 0) + 1
+        return _FirstDispatchTimer(
+            prog, lambda dt: tr.compile_event(name, label, False, dt))
+
+    def attach_ledger(self, ledger):
+        """Route this engine's wall clock into a ``telemetry_ledger
+        .RunLedger``: tick walls feed ``compute`` and compile-miss walls
+        ``compile``, through the attached tracer's event stream
+        (``Tracer.set_ledger``).  Requires a ``tracer=``."""
+        if self.tracer is None:
+            raise ValueError(
+                "attach_ledger needs a tracer: construct the engine with "
+                "tracer=Tracer() — the ledger consumes its event stream")
+        self.tracer.set_ledger(ledger)
+        return ledger
+
+    def attach_memory(self, ledger):
+        """Register this engine's device tensors with a
+        ``telemetry_memory.MemoryLedger``: the model's parameters → the
+        ``params`` pool, the KV caches → ``kv_pages`` (the hbm tier of
+        the census).  ``metrics()`` then carries ``memory_device_bytes`` /
+        ``memory_host_bytes``.  The caches are updated in place, so the
+        registration stays current; :meth:`refresh_memory` re-registers
+        (the reference rebuilds its caches every tick and needs it before
+        a census)."""
+        self._memory = ledger
+        if self.tracer is not None and getattr(ledger, "_tracer", None) \
+                is None:
+            ledger.set_tracer(self.tracer)
+        self.refresh_memory()
+        return ledger
+
+    def refresh_memory(self):
+        """Re-register the parameters and the KV caches with the attached
+        memory ledger (no-op without one — one attribute check)."""
+        ml = self._memory
+        if ml is None:
+            return
+        ml.register_tree("params", dict(self.model.named_parameters()),
+                         name=f"engine{id(self)}.params")
+        caches = getattr(self, "caches", None)
+        if caches is not None:
+            ml.register_tree("kv_pages", caches,
+                             name=f"engine{id(self)}.kv")
+
+    def _note(self, key: str, value=1):
+        """Accumulate one per-tick telemetry field (no-op when tracing is
+        off — a single attribute check)."""
+        if self.tracer is None:
+            return
+        self._tick_note[key] = self._tick_note.get(key, 0) + value
 
     def _program(self, label, fn, shapes, inert) -> GraphProgram:
         """A program over this engine's graph pool, capture stream and
@@ -588,11 +713,14 @@ class ContinuousBatchingEngine:
         would.  Returns the report ``{"programs", "wall_s", "tasks",
         "cache_dir"}``; ``block=False`` runs on a background thread and
         returns its Future (``step()`` runs between tasks, and a request
-        it serves builds what it needs first).  ``cache_dir`` and
-        ``max_workers > 1`` raise (``ROADMAP.md`` §C)."""
+        it serves builds what it needs first).  With a tracer attached the
+        run sits in an ``expected_compiles`` window over the grid's labels
+        (its compile events are tagged ``expected`` and never arm the
+        recompile-storm warning).  ``cache_dir`` and ``max_workers > 1``
+        raise (``ROADMAP.md`` §C)."""
         tasks = self._warmup_tasks()
-        kw = dict(cache_dir=cache_dir, max_workers=max_workers,
-                  lock=self._lock)
+        kw = dict(tracer=self.tracer, cache_dir=cache_dir,
+                  max_workers=max_workers, lock=self._lock)
         if block:
             return run_warmup(tasks, **kw)
         return warmup_async(tasks, **kw)
@@ -628,9 +756,14 @@ class ContinuousBatchingEngine:
     # --------------------------------------------------------- scheduling --
 
     def add_request(self, prompt, max_new_tokens: int, on_token=None,
-                    **sampling) -> int:
+                    trace_ctx=None, **sampling) -> int:
         """Queue a prompt; returns the request id.  Admission happens inside
         ``step()`` whenever a slot is free.
+
+        ``trace_ctx``: an optional ``telemetry.TraceContext`` minted by the
+        caller; it binds the request id to that trace in the attached
+        tracer, so every request-timeline event carries its trace_id
+        (host-side metadata only).
 
         ``on_token(request_id, token, done)``: optional streaming callback,
         invoked on the host as each token is accepted.  ``cancel`` ends
@@ -655,6 +788,11 @@ class ContinuousBatchingEngine:
         req.sampling = self._resolve_sampling(sampling)
         req.on_token = on_token
         self._queue.append(req)
+        if self.tracer is not None:
+            if trace_ctx is not None:
+                self.tracer.bind_trace(req.id, trace_ctx)
+            self.tracer.request_event(req.id, "queued",
+                                      prompt_len=len(prompt))
         return req.id
 
     def _resolve_sampling(self, overrides):
@@ -716,7 +854,11 @@ class ContinuousBatchingEngine:
     def _set_planes(self, slot, req):
         """Write the request's effective sampler config into the slot's
         column of the per-request planes (no-op in classic mode).  Runs at
-        admission, before the first token samples through the planes."""
+        admission, before the first token samples through the planes —
+        the one admission choke point every engine passes, so it also
+        emits the ``admitted`` transition."""
+        if self.tracer is not None:
+            self.tracer.request_event(req.id, "admitted", slot=int(slot))
         if not self.per_request:
             return
         self._r_planes[:, slot] = np.asarray(req.sampling, np.float32)
@@ -765,6 +907,7 @@ class ContinuousBatchingEngine:
             self._set_planes(slot, req)
             if F:
                 # prefix-cache hit: only the suffix past F blocks runs
+                self._note("prefill_tokens", P - F * self.bs)
                 self._run_cached_prefill(slot, req, P, pad, ids, F)
                 continue
             if chunked:
@@ -786,6 +929,7 @@ class ContinuousBatchingEngine:
                                        "P": P, "seg": 0,
                                        "nseg": P // self.prefill_chunk}
                 continue
+            self._note("prefill_tokens", P)
             self._run_admission_prefill(slot, req, P, pad, ids)
 
     def _reserve_slot(self, slot, P, pad, ids, chunked):
@@ -807,6 +951,7 @@ class ContinuousBatchingEngine:
             if not self._reserve_segment(slot, (i + 1) * seg):
                 continue
             tok0 = self._run_fill_segment(slot, st, i, last)
+            self._note("prefill_tokens", seg)
             if last:
                 del self._filling[slot]
                 self._register_prompt_blocks(slot, st["ids"], st["pad"],
@@ -824,6 +969,9 @@ class ContinuousBatchingEngine:
 
     def _activate(self, slot, req, P, pad, tok0):
         req.first_token_at = time.monotonic()   # tok0 exists: TTFT point
+        if self.tracer is not None:
+            self.tracer.request_event(req.id, "first_token",
+                                      slot=int(slot))
         self._slot_req[slot] = req
         self._t[slot] = P
         self._pad[slot] = pad
@@ -835,6 +983,8 @@ class ContinuousBatchingEngine:
         """Append a token to the slot's request; retire on EOS/budget."""
         req = self._slot_req[slot]
         req.generated.append(tok)
+        if self.tracer is not None:
+            self.tracer.request_event(req.id, "token", token=int(tok))
         eos = req.sampling[6] if self.per_request else self.eos_token_id
         done = len(req.generated) >= req.max_new_tokens \
             or (eos is not None and eos >= 0 and tok == eos)
@@ -856,11 +1006,16 @@ class ContinuousBatchingEngine:
         self._finished[req.id] = list(req.generated)
         self._slot_req[slot] = None
         self._active[slot] = False
+        n = len(req.generated)
+        stat_add("serving_requests_finished")
+        stat_add("serving_tokens_emitted", n)
         s = self._stats
         s.add("requests_finished")
-        s.add("tokens_emitted", len(req.generated))
+        s.add("tokens_emitted", n)
         s.add("ttft_seconds_sum", req.first_token_at - req.enqueued_at)
         s.add("latency_seconds_sum", req.finished_at - req.enqueued_at)
+        if self.tracer is not None:
+            self.tracer.request_event(req.id, "retired", tokens=n)
 
     def cancel(self, rid: int) -> bool:
         """Cancel one in-flight request (queued, mid-prefill or decoding)
@@ -896,6 +1051,10 @@ class ContinuousBatchingEngine:
         req.done = True
         req.finished_at = time.monotonic()
         self._stats.add("requests_cancelled")
+        stat_add("serving_requests_cancelled")
+        if self.tracer is not None:
+            self.tracer.request_event(req.id, "cancelled",
+                                      tokens=len(req.generated))
         if req.on_token is not None:
             try:
                 req.on_token(req.id, None, True)   # terminal end-of-stream
@@ -903,16 +1062,52 @@ class ContinuousBatchingEngine:
                 logging.getLogger(__name__).exception(
                     "on_token cancel signal failed for request %d", req.id)
 
+    _TICK_COUNTERS = ("tokens_emitted", "requests_finished")
+
     def step(self):
         """One scheduler round (``_step_impl``) under the engine's lock
-        (warmup tasks take it too); an escaping exception counts
-        ``step_errors`` before it propagates."""
+        (warmup tasks take it too).  With ``tracer=None`` this is one
+        attribute check and a tail call; with a tracer the round is
+        bracketed by tick telemetry — host wall, queue depth, counter
+        deltas, packed rows, program labels.  An escaping exception counts
+        ``step_errors`` (and, traced, lands as an ``engine_error`` event)
+        before it propagates."""
         with self._lock:
-            try:
-                return self._step_impl()
-            except Exception:
-                self._stats.add("step_errors")
-                raise
+            tr = self.tracer
+            if tr is None:
+                try:
+                    return self._step_impl()
+                except Exception:
+                    self._stats.add("step_errors")
+                    raise
+            return self._traced_step(tr)
+
+    def _traced_step(self, tr):
+        t0 = time.perf_counter()
+        self._tick_note = {}
+        s = self._stats
+        base = {k: s.value(k) for k in self._TICK_COUNTERS}
+        try:
+            return self._step_impl()
+        except Exception as e:
+            s.add("step_errors")
+            tr.emit("engine_error", what="step_error",
+                    engine=type(self).__name__, error=repr(e))
+            raise
+        finally:
+            fields = {k: s.value(k) - base[k] for k in self._TICK_COUNTERS}
+            fields.update(self._tick_gauges())
+            fields.update(self._tick_note)
+            self._tick_note = {}
+            tr.tick(type(self).__name__, time.perf_counter() - t0,
+                    queue_depth=len(self._queue),
+                    active=int(self._active.sum()),
+                    filling=len(self._filling), **fields)
+
+    def _tick_gauges(self) -> Dict[str, float]:
+        """Instantaneous per-tick gauges (subclass hook; only consulted
+        when tracing is on)."""
+        return {}
 
     def _step_impl(self):
         """One scheduler round: admit waiting requests into free slots, run
@@ -965,6 +1160,7 @@ class ContinuousBatchingEngine:
             return None
         self._stats.add("decode_syncs")
         active_before = self._active.copy()
+        self._note("decode_rows", int(active_before.sum()))
         extra = self._decode_extra_operands()
         emitted0 = np.asarray([len(r.generated) if r is not None else 0
                                for r in self._slot_req], np.int32)
@@ -976,24 +1172,75 @@ class ContinuousBatchingEngine:
                              *extra)
         return active_before, blk.cpu().numpy()
 
+    # metrics() contract: {key: (kind, pytype)}; kind "counter" =
+    # monotonic over the engine's lifetime, "gauge" = instantaneous or
+    # derived.  Keys never change meaning; subclasses extend.
+    METRICS_SCHEMA = {
+        "requests_finished": ("counter", int),
+        "requests_cancelled": ("counter", int),
+        "tokens_emitted": ("counter", int),
+        "mean_ttft_s": ("gauge", float),
+        "mean_latency_s": ("gauge", float),
+        "tokens_per_sec": ("gauge", float),
+        "compile_hits": ("counter", int),
+        "compile_misses": ("counter", int),
+        "step_errors": ("counter", int),
+        # present only with attach_memory(MemoryLedger):
+        "memory_device_bytes": ("gauge", float),
+        "memory_host_bytes": ("gauge", float),
+    }
+
+    @classmethod
+    def metrics_schema(cls) -> Dict[str, tuple]:
+        """The ``metrics()`` schema of this engine class, merged over the
+        MRO: every key metrics() returns, with its kind and type;
+        conditional keys may be absent from a given metrics() dict but
+        never change meaning."""
+        out: Dict[str, tuple] = {}
+        for klass in reversed(cls.__mro__):
+            out.update(klass.__dict__.get("METRICS_SCHEMA", {}))
+        return out
+
     def metrics(self) -> Dict[str, float]:
         """Finished/cancelled request counts, tokens, mean time to first
-        token, mean request latency, lifetime tokens/s, step errors, and
-        the program cache's hits and misses."""
+        token, mean request latency, lifetime tokens/s, step errors, the
+        program cache's hits and misses, and with a memory ledger attached
+        its device and host byte totals.  Schema: ``metrics_schema()``."""
         s = self._stats
         nreq = int(s.value("requests_finished"))
         n = max(nreq, 1)
         toks = int(s.value("tokens_emitted"))
         dt = max(time.monotonic() - self._started, 1e-9)
-        return {"requests_finished": nreq,
-                "requests_cancelled": int(s.value("requests_cancelled")),
-                "tokens_emitted": toks,
-                "mean_ttft_s": float(s.value("ttft_seconds_sum")) / n,
-                "mean_latency_s": float(s.value("latency_seconds_sum")) / n,
-                "tokens_per_sec": toks / dt,
-                "step_errors": int(s.value("step_errors")),
-                "compile_hits": self._compile_hits,
-                "compile_misses": self._compile_misses}
+        out = {"requests_finished": nreq,
+               "requests_cancelled": int(s.value("requests_cancelled")),
+               "tokens_emitted": toks,
+               "mean_ttft_s": float(s.value("ttft_seconds_sum")) / n,
+               "mean_latency_s": float(s.value("latency_seconds_sum")) / n,
+               "tokens_per_sec": toks / dt,
+               "compile_hits": self._compile_hits,
+               "compile_misses": self._compile_misses,
+               "step_errors": int(s.value("step_errors"))}
+        if self._memory is not None:
+            totals = self._memory.memory_snapshot()["totals"]
+            out["memory_device_bytes"] = float(totals["device_bytes"])
+            out["memory_host_bytes"] = float(totals["host_bytes"])
+        return out
+
+    def prometheus_text(self, namespace: str = "paddle_tpu_serving") -> str:
+        """Prometheus text exposition of this engine's registry plus the
+        ``metrics()`` values not stored as raw registry stats, each typed
+        per ``metrics_schema()`` (compile counts stay counters, means and
+        throughput are gauges)."""
+        raw = set(self._stats.snapshot())
+        schema = self.metrics_schema()
+        gauges, counters = {}, {}
+        for k, v in self.metrics().items():
+            if k in raw:
+                continue
+            (counters if schema[k][0] == "counter" else gauges)[k] = v
+        return _prometheus_text(self._stats, namespace=namespace,
+                                extra_gauges=gauges,
+                                extra_counters=counters)
 
     def run_to_completion(self, max_ticks: Optional[int] = None
                           ) -> Dict[int, List[int]]:

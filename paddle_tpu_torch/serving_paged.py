@@ -71,9 +71,8 @@ admission whose chain misses the pool but hits the store restores the page
 into a fresh block (one host→device copy, written in place: the pools'
 storage never moves, since the engine's graphs hold its address) before
 any device step.  Pages carry the reference's metadata and bytes, so a
-page exported by one package restores in the other.  Left for later: the
-engine-side ``kvstore`` trace events with the tracer, telemetry and the
-mesh.
+page exported by one package restores in the other; with a tracer each
+demotion and restore is a ``kvstore`` event.  Left for later: the mesh.
 """
 
 from __future__ import annotations
@@ -171,6 +170,10 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         self._prefix_cache = collections.OrderedDict()  # chain -> bid (LRU)
         self._key_of = {}                             # bid -> chain
 
+    _TICK_COUNTERS = (ContinuousBatchingEngine._TICK_COUNTERS
+                      + ("blocks_allocated", "blocks_released",
+                         "preemptions", "prefix_hits"))
+
     @property
     def preemptions(self) -> int:
         return int(self._stats.value("preemptions"))
@@ -186,6 +189,9 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
     @property
     def blocks_high_water(self) -> int:
         return int(self._stats.value("blocks_high_water"))
+
+    def _tick_gauges(self):
+        return {"blocks_in_use": self.blocks_in_use}
 
     # ------------------------------------------------------------ storage --
 
@@ -425,13 +431,19 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         a demotion).  A failing store degrades to dropping the page
         (recompute stays correct)."""
         try:
-            self.kv_store.put(self._page(chain, bid))
+            page = self._page(chain, bid)
+            self.kv_store.put(page)
         except Exception:  # noqa: BLE001 — a broken store must never take
             # the allocator down; dropping the page is always safe
             logging.getLogger(__name__).exception(
                 "kv_store demotion failed; page dropped")
             return
         self._stats.add("kvstore_demoted_blocks")
+        if self.tracer is not None:
+            self.tracer.emit("kvstore", what="demote",
+                             chain=chain_hex(chain)[:16],
+                             bytes=page.nbytes,
+                             engine=type(self).__name__)
 
     def _restore_page(self, chain) -> Optional[int]:
         """Restore one lower-tier page into a freshly allocated block;
@@ -448,6 +460,11 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         self._prefix_cache[chain] = bid
         self._key_of[bid] = chain
         self._stats.add("kvstore_restored_blocks")
+        if self.tracer is not None:
+            self.tracer.emit("kvstore", what="restore",
+                             chain=chain_hex(chain)[:16],
+                             bytes=page.nbytes,
+                             engine=type(self).__name__)
         return bid
 
     def export_prefix_pages(self, prompt) -> list:
@@ -588,6 +605,9 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         self._queue.insert(0, req)
         self._free_slot_blocks(victim)
         self._stats.add("preemptions")
+        if self.tracer is not None:
+            self.tracer.request_event(req.id, "preempted",
+                                      slot=int(victim))
         if req.on_token is not None:
             try:
                 req.on_token(req.id, None, False)      # replay/reset signal
@@ -805,9 +825,10 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         return False
 
     def add_request(self, prompt, max_new_tokens: int, on_token=None,
-                    **sampling) -> int:
+                    trace_ctx=None, **sampling) -> int:
         """Queue a prompt (the base contract); refuses a request the pool
-        could never hold."""
+        could never hold.  A preempted request keeps its id, so its replay
+        events stay on the same trace."""
         prompt_l = [int(t) for t in prompt]
         if prompt_l:
             P = select_bucket(len(prompt_l), self.buckets)
@@ -819,7 +840,23 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                     f"{self.NB} — raise num_blocks or lower "
                     f"max_new_tokens")
         return super().add_request(prompt_l, max_new_tokens,
-                                   on_token=on_token, **sampling)
+                                   on_token=on_token, trace_ctx=trace_ctx,
+                                   **sampling)
+
+    METRICS_SCHEMA = {
+        "blocks_in_use": ("gauge", float),
+        "blocks_high_water": ("gauge", float),
+        "blocks_allocated": ("counter", float),
+        "blocks_released": ("counter", float),
+        "preemptions": ("counter", float),
+        # present only with enable_prefix_cache=True:
+        "blocks_cached": ("gauge", float),
+        "prefix_hits": ("counter", float),
+        "prefix_blocks_reused": ("counter", float),
+        # present only with an attached kv_store (tiered page store):
+        "kvstore_restored_blocks": ("counter", float),
+        "kvstore_demoted_blocks": ("counter", float),
+    }
 
     def metrics(self):
         m = super().metrics()
@@ -944,6 +981,20 @@ class RaggedPagedContinuousBatchingEngine(PagedContinuousBatchingEngine):
                                  f"the engine runs on {self.device}")
             self.draft_caches = self._build_pool(dc)
 
+    _TICK_COUNTERS = (PagedContinuousBatchingEngine._TICK_COUNTERS
+                      + ("tokens_drafted", "tokens_accepted"))
+
+    METRICS_SCHEMA = {
+        "ragged_steps": ("counter", float),
+        "mixed_steps": ("counter", float),
+        # present only with a draft model (ragged speculation):
+        "spec_rounds": ("counter", int),
+        "tokens_drafted": ("counter", int),
+        "tokens_accepted": ("counter", int),
+        "acceptance_rate": ("gauge", float),
+        "accepted_tokens_per_s": ("gauge", float),
+    }
+
     @property
     def ragged_steps(self) -> int:
         return int(self._stats.value("ragged_steps"))
@@ -998,7 +1049,8 @@ class RaggedPagedContinuousBatchingEngine(PagedContinuousBatchingEngine):
         return super()._positions_needed(P, mnt)
 
     def add_request(self, prompt, max_new_tokens: int, on_token=None,
-                    spec: Optional[bool] = None, **sampling) -> int:
+                    spec: Optional[bool] = None, trace_ctx=None,
+                    **sampling) -> int:
         """The base contract plus the per-request speculation flag:
         ``spec=None`` speculates iff the engine has a draft model,
         ``spec=False`` opts this request out (plain decode rows in the same
@@ -1011,7 +1063,8 @@ class RaggedPagedContinuousBatchingEngine(PagedContinuousBatchingEngine):
         self._pending_spec = eff
         try:
             rid = super().add_request(prompt, max_new_tokens,
-                                      on_token=on_token, **sampling)
+                                      on_token=on_token,
+                                      trace_ctx=trace_ctx, **sampling)
         finally:
             self._pending_spec = None
         self._queue[-1].spec = eff        # the base just appended it
@@ -1156,6 +1209,8 @@ class RaggedPagedContinuousBatchingEngine(PagedContinuousBatchingEngine):
             return self._run_spec_pack(toks, row_seq, row_pos, C,
                                        sample_rows, dec_slots, fill_adv,
                                        spec_row0, spec_active)
+        if self.tracer is not None:
+            self._note_pack(len(dec_slots), fill_adv, C)
         emitted0 = np.asarray(
             [len(self._slot_req[s].generated) if self._active[s] else 0
              for s in range(self.S)], np.int32)
@@ -1170,6 +1225,21 @@ class RaggedPagedContinuousBatchingEngine(PagedContinuousBatchingEngine):
             if self._active[slot] and int(self._t[slot]) + 1 > self.max_len:
                 self._retire(slot)
         self._advance_fills(fill_adv, ntok)
+
+    def _note_pack(self, n_dec, fill_adv, C, spec_rows=None):
+        """The tick notes of one ragged pack: decode rows, prefill rows,
+        the budget they used, the budget and table width, and with a draft
+        the speculative rows (tracing on only)."""
+        pf = int(sum(fill_adv.values()))
+        note = self._tick_note
+        note["decode_rows"] = note.get("decode_rows", 0) + n_dec
+        if spec_rows is not None:
+            note["spec_rows"] = note.get("spec_rows", 0) + spec_rows
+        note["prefill_tokens"] = note.get("prefill_tokens", 0) + pf
+        note["budget_used"] = note.get("budget_used", 0) + n_dec \
+            + (spec_rows or 0) + pf
+        note["token_budget"] = self.token_budget
+        note["table_cols"] = C
 
     def _advance_fills(self, fill_adv, first):
         """Advance each filling slot by its rows of this step; a completed
@@ -1268,6 +1338,8 @@ class RaggedPagedContinuousBatchingEngine(PagedContinuousBatchingEngine):
         prompts by their one greedy token (``block[:, 0]``)."""
         K = self.K
         n_spec = int(spec_active.sum())
+        if self.tracer is not None:
+            self._note_pack(len(dec_slots), fill_adv, C, n_spec * K)
         lead, block = self._spec_step(toks, row_seq, row_pos, C,
                                       sample_rows, spec_row0, spec_active)
         self._stats.add("ragged_steps")
@@ -1406,7 +1478,7 @@ class SpeculativeBatchingEngine(RaggedPagedContinuousBatchingEngine):
     block size derived from max_len and the bucket ladder.  Outputs keep
     the greedy contract; ``rounds`` reports the speculative rounds."""
 
-    _SUPPORTED_CACHE_KW = frozenset()
+    _SUPPORTED_CACHE_KW = frozenset({"tracer"})
 
     def __init__(self, model, draft_model, max_slots: int, max_len: int,
                  draft_k: int = 4, prompt_buckets=None, eos_token_id=None,
@@ -1436,7 +1508,7 @@ class PagedSpeculativeBatchingEngine(SpeculativeBatchingEngine):
 
     _SUPPORTED_CACHE_KW = frozenset({"block_size", "num_blocks",
                                      "enable_prefix_cache",
-                                     "prefill_chunk"})
+                                     "prefill_chunk", "tracer"})
 
     def __init__(self, model, draft_model, max_slots: int, max_len: int,
                  draft_k: int = 4, prompt_buckets=None, eos_token_id=None,
