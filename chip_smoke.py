@@ -225,6 +225,31 @@ Phases (any failure exits non-zero before the result lines):
    tokens/s beside the wall clock's, the goodput), then 2 more monitored
    steps under a host-side ``torch.profiler`` trace: each step's host
    dispatch and the CUDA runtime calls by their host time.
+19. ERNIE-MoE (``bench.py bench_ernie_moe``'s accelerator config: vocab
+   30528, hidden 768, 6 layers, 12 heads, 8 experts, top-2, expert hidden
+   3072, max_pos 512, bf16, weights from seed 0) and the optimizer
+   surface: (1) card vs CPU at hidden 768, 8 experts, 2 layers, fp32, B 2,
+   L 256, 5 steps of AdamW under LinearWarmup(CosineAnnealingDecay) with
+   ClipGradByGlobalNorm(1.0) from the same weights: losses within 1e-4
+   relative, final parameters within 3e-3, routing flips (tokens whose
+   top-2 experts differ, before and after training) only where the CPU's
+   k-th and next gate probabilities are within 1e-5; (2) the full-width
+   train at B 8, L 512, AdamW(1e-4, wd 0.01), remat off: 3 warm-up steps,
+   3 profiled, 10 timed, losses finite and falling, 6 launches of each
+   flash kernel a step; (3) phase 3's traffic through the ragged engine
+   with graphs (B1 6 a step, the graph pool printed), 4 streams against
+   ``generate()``, then again with a 1-layer GPT draft at K 2 (B1 7 and
+   B5 2 a step, streams equal to the plain arm's); (4) its first 12
+   requests through the bucketed paged engine (ticks_per_sync 8; B5 6 a
+   tick, B2 6 an admission at bucket 128, streams equal to the ragged
+   arm's); the decode
+   FFN's every-expert form timed against the literal per-token gather at
+   T 1, 8 and 256; (5) the ten optimizers for 3 eager ``step()`` calls
+   with no clip and each clip, card vs CPU in fp32 within 1e-6 + 1e-5 of
+   the value.  A bf16 stream here may leave another where the top-2
+   logit gap is under 2^-5 or where a gate decision of its context (the
+   2nd against the 3rd gate probability) is within 2^-10: 8-bit hidden
+   states that differ by a rounding can route a token to another expert.
 
 Then each kernel is timed at its main path's shapes beside its plain
 version, one PyTorch call computing the same function (``library_ms``,
@@ -241,9 +266,12 @@ flushed.  The kernels JSON counts the main paths' launches (phases 3, 6,
 9 and 12) plus phase 17's (``flash_fwd`` in generation's prefills, the
 ragged and paged decode kernels in the tiered store's serves) and phase
 18's (the ragged kernel in its four serves, the paged decode kernel and
-``flash_fwd`` in its bucketed serve, the three flash kernels in its 4
-train steps).  The last two lines are the kernels JSON and the device
-JSON.
+``flash_fwd`` in its bucketed serve, the three flash kernels in its 6
+train steps) and phase 19's (the ragged kernel in its two ERNIE-MoE
+serves, the paged decode kernel in the bucketed one and in the draft's
+proposals, ``flash_fwd`` in the bucketed admissions, the three flash
+kernels in the 10 timed ERNIE-MoE train steps).  The last two lines are
+the kernels JSON and the device JSON.
 
 Without CUDA, or run without the rest of the repository, it exits
 non-zero and prints no result.
@@ -577,14 +605,15 @@ def serve(model, reqs, profile_steps=None, **kw):
     """Serve ``reqs`` with 2 arrivals per step at phase 3's settings (``kw``
     adds engine arguments); returns (engine, wall s, {rid: tokens}, {rid:
     budget}).  ``profile_steps=(a, b)`` traces steps [a, b) with
-    ``torch.profiler`` and prints where their time went."""
+    ``torch.profiler`` and prints where their time went.  ``warm``'s
+    result for the engine is left in ``serve.last_warm``."""
     from paddle_tpu_torch.serving_paged import \
         RaggedPagedContinuousBatchingEngine
 
     eng = RaggedPagedContinuousBatchingEngine(
         model, max_slots=8, max_len=512, block_size=16,
         prompt_buckets=[64, 128], token_budget=256, device="cuda", **kw)
-    warm(eng)
+    serve.last_warm = warm(eng)
     budgets, added, step, prof = {}, 0, 0, None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3309,6 +3338,485 @@ def phase18(card):
     return ragged, paged, (flash[0] + flash_fwd, *flash[1:])
 
 
+# ------------------------------------------------------------ phase 19 --
+
+# bench.py bench_ernie_moe's accelerator config (bench.py:346-351)
+ERNIE_BENCH = dict(vocab_size=30528, hidden_size=768, num_layers=6,
+                   num_attention_heads=12, num_experts=8, top_k=2,
+                   max_position_embeddings=512, compute_dtype="bfloat16")
+ERNIE_LOSS_TOL, ERNIE_PARAM_TOL = 1e-4, 3e-3     # phase 5's bounds
+ROUTE_TIE = 1e-5       # fp32 gate probabilities this close may route apart
+# bf16 hidden states carry 8 bits: a rounding (2^-9 of |x| ~ 1 after the
+# LN) moves a gate logit by ~sqrt(H) * 2^-9 * 0.02 ~ 1e-3, a probability
+# near 1/8 by ~1e-4; gate decisions closer than 2^-10 may route apart
+GATE_TIE = 2.0 ** -10
+OPT_RTOL, OPT_ATOL = 1e-5, 1e-6   # eager optimizers, card vs CPU, fp32
+
+
+def ernie_model(dev, generator_device=None, **over):
+    """An ERNIE-MoE at ``bench_ernie_moe``'s width (``over`` cuts it) with
+    weights from seed 0."""
+    from paddle_tpu_torch.models.ernie_moe import (ErnieMoeConfig,
+                                                   ErnieMoeModel)
+
+    cfg = ErnieMoeConfig(**dict(ERNIE_BENCH, **over))
+    gen = torch.Generator(generator_device or dev).manual_seed(0)
+    return ErnieMoeModel(cfg, device=dev, generator=gen)
+
+
+@contextlib.contextmanager
+def recorded_routing():
+    """Record (gate logits, expert indices) of every ``topk_gating_indices``
+    call made inside the block."""
+    from paddle_tpu_torch.ops import moe
+
+    calls, inner = [], moe.topk_gating_indices
+
+    def record(logits, *a, **kw):
+        out = inner(logits, *a, **kw)
+        calls.append((logits.detach().float().cpu(), out[0].cpu()))
+        return out
+
+    moe.topk_gating_indices = record
+    try:
+        yield calls
+    finally:
+        moe.topk_gating_indices = inner
+
+
+def routing_flips(model_a, model_b, ids, k):
+    """Tokens whose chosen experts differ between two models' forwards of
+    ``ids`` (every layer), and the smallest gap between the k-th and the
+    next gate probability of ``model_b``'s routing over all tokens."""
+    runs = []
+    for m in (model_a, model_b):
+        with recorded_routing() as calls, torch.no_grad():
+            m(ids.to(m.wte.device))
+        runs.append(calls)
+    flips, gap = 0, float("inf")
+    for (_, ea), (lb, eb) in zip(*runs):
+        flips += int((ea.sort(-1).values != eb.sort(-1).values).any(-1)
+                     .sum())
+        p = torch.softmax(lb, -1).sort(-1, descending=True).values
+        gap = min(gap, float((p[:, k - 1] - p[:, k]).min()))
+    return flips, gap
+
+
+def gate_gap(model, prompt, buckets, prefix):
+    """The smallest gap between the k-th and the next gate probability of
+    ``model``'s no-drop routing over ``prompt`` + ``prefix`` (left-padded
+    to its bucket; real positions only), every layer."""
+    from paddle_tpu_torch.jit.bucketing import select_bucket
+
+    ids = prompt + prefix
+    pad = select_bucket(len(prompt), buckets) - len(prompt)
+    dev = model.wte.device
+    with recorded_routing() as calls, torch.no_grad():
+        model.prefill(torch.tensor([[0] * pad + ids], device=dev),
+                      pad + len(ids),
+                      pad_lens=torch.tensor([pad], dtype=torch.int32,
+                                            device=dev))
+    k = model.config.top_k
+    gaps = [torch.softmax(lg[pad:], -1).sort(-1, descending=True).values
+            for lg, _ in calls]
+    return min(float((p[:, k - 1] - p[:, k]).min()) for p in gaps)
+
+
+def same_or_route_tie(label, got, want, prompt, buckets, model):
+    """``same_or_tie`` for a routed model: ``got`` equals ``want``, or
+    first diverges where the top-2 logit gap is under BF16_TIE or a gate
+    decision of the context (the k-th against the next gate probability)
+    is within GATE_TIE — a routing flip of the 8-bit hidden states.  Both
+    gaps printed; returns True when equal."""
+    n = min(len(got), len(want))
+    j = next((i for i in range(n) if got[i] != want[i]), None)
+    if j is None:
+        check(len(got) == len(want), f"{label}: lengths {len(got)} vs "
+                                     f"{len(want)} with no differing token")
+        return True
+    lgap = tie_gap(model, prompt, buckets, want[:j])
+    ggap = gate_gap(model, prompt, buckets, want[:j])
+    say(f"{label}: diverges at token {j}: {got[j]} vs {want[j]}, top-2 "
+        f"logit gap {lgap:.3e}, smallest gate gap of the context "
+        f"{ggap:.3e}")
+    check(lgap < BF16_TIE or ggap < GATE_TIE,
+          f"{label}: diverged where the top-2 gap is {lgap} (>= {BF16_TIE}) "
+          f"and the smallest gate gap {ggap} (>= {GATE_TIE})")
+    return False
+
+
+def ernie_train_losses(model, batches, dev):
+    from paddle_tpu_torch.models.ernie_moe import make_ernie_moe_train_step
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
+                                               LinearWarmup)
+
+    sched = LinearWarmup(CosineAnnealingDecay(3e-4, T_max=5),
+                         warmup_steps=2, start_lr=3e-5, end_lr=3e-4)
+    opt = AdamW(sched, weight_decay=0.01,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    step, state = make_ernie_moe_train_step(model, opt, remat=False)
+    losses = []
+    for x, y in batches:
+        state, loss = step(state, opt.get_lr(), torch.from_numpy(x).to(dev),
+                           torch.from_numpy(y).to(dev))
+        sched.step()
+        losses.append(loss.item())
+    return losses
+
+
+def phase19_card_vs_cpu():
+    """(1) ERNIE-MoE at hidden 768, 8 experts, top-2, expert hidden 3072,
+    2 layers, fp32: 5 steps of AdamW under LinearWarmup(Cosine) with
+    ClipGradByGlobalNorm(1.0) at B 2, L 256 from the same weights on the
+    card and on the CPU."""
+    from paddle_tpu_torch.models.ernie_moe import params_from_numpy
+
+    cpu_model = ernie_model("cpu", num_layers=2, compute_dtype="float32")
+    cfg = cpu_model.config
+    state = {n: p.detach().numpy().copy()
+             for n, p in cpu_model.named_parameters()}
+    gpu_model = params_from_numpy(state, cfg, device="cuda")
+    rng = np.random.RandomState(1)
+    batches = [(rng.randint(0, cfg.vocab_size, (2, 256)),
+                rng.randint(0, cfg.vocab_size, (2, 256))) for _ in range(5)]
+    first = torch.from_numpy(batches[0][0])
+    flips0, gap0 = routing_flips(gpu_model, cpu_model, first, cfg.top_k)
+    gl = ernie_train_losses(gpu_model, batches, "cuda")
+    cl = ernie_train_losses(cpu_model, batches, "cpu")
+    flips1, gap1 = routing_flips(gpu_model, cpu_model,
+                                 torch.from_numpy(batches[-1][0]), cfg.top_k)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
+    cpu_params = dict(cpu_model.named_parameters())
+    perr = max((p.detach().cpu() - cpu_params[n].detach()).abs().max().item()
+               for n, p in gpu_model.named_parameters())
+    say(f"phase19 card vs CPU ERNIE-MoE train (hidden 768, 8 experts, "
+        f"top-2, 2 layers, fp32, B 2, L 256, 5 steps of AdamW under "
+        f"LinearWarmup(CosineAnnealingDecay) with ClipGradByGlobalNorm(1.0)):"
+        f" losses cuda {[round(x, 6) for x in gl]} cpu "
+        f"{[round(x, 6) for x in cl]}, max rel diff {rel:.3e} (tol "
+        f"{ERNIE_LOSS_TOL}), final params max abs diff {perr:.3e} (tol "
+        f"{ERNIE_PARAM_TOL}); routing flips {flips0} before training "
+        f"(smallest k-th/next gate gap {gap0:.3e}) and {flips1} after "
+        f"(gap {gap1:.3e}) of {2 * 256 * cfg.num_layers} token-layers each")
+    check(all(np.isfinite(gl)), "phase19: non-finite card loss")
+    check(rel <= ERNIE_LOSS_TOL, f"phase19: losses differ by {rel}")
+    check(perr <= ERNIE_PARAM_TOL, f"phase19: parameters differ by {perr}")
+    for flips, gap in ((flips0, gap0), (flips1, gap1)):
+        check(flips == 0 or gap < ROUTE_TIE,
+              f"phase19: {flips} routing flips with the smallest gate gap "
+              f"{gap} (>= {ROUTE_TIE})")
+
+
+def phase19_train(card):
+    """(2) the full-width train at ``bench_ernie_moe``'s config: B 8, L
+    512, AdamW(1e-4, wd 0.01), remat off; 3 warm-up steps, 3 profiled, 10
+    timed.  Returns the three flash kernels' launches in the timed 10."""
+    from paddle_tpu_torch.models.ernie_moe import make_ernie_moe_train_step
+    from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = ernie_model("cuda")
+    cfg = model.config
+    Lyr, B, L = cfg.num_layers, 8, 512
+    n_params = sum(p.numel() for p in model.parameters())
+    step, state = make_ernie_moe_train_step(
+        model, AdamW(1e-4, weight_decay=0.01), remat=False)
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, L))).cuda()
+    y = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, L))).cuda()
+    losses = []
+
+    def run(n):
+        nonlocal state
+        for _ in range(n):
+            state, loss = step(state, 1e-4, x, y)
+            losses.append(loss)
+
+    run(3)
+    prof = start_profile()
+    run(3)
+    report_profile(prof, 3)
+    prof_last = dict(report_profile.last)
+    kernels = (A.flash_fwd_cuda, A.flash_bwd_dq_cuda, A.flash_bwd_dkv_cuda)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run(10)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = [k.launches for k in kernels]
+    vals = [v.item() for v in losses]
+    check(all(np.isfinite(vals)), f"phase19 train: non-finite loss {vals}")
+    check(vals[-1] < vals[0], f"phase19 train: loss did not fall: {vals}")
+    check(launches == [Lyr * 10] * 3,
+          f"phase19 train: flash launches {launches} != {Lyr} x 10 each")
+    say(f"phase19 ERNIE-MoE train at bench_ernie_moe's config ({n_params} "
+        f"parameters: vocab 30528, hidden 768, 6 layers, 12 heads, 8 "
+        f"experts, top-2, expert hidden 3072, bf16, B {B}, L {L}, remat "
+        f"off, AdamW(1e-4, wd 0.01)) on {card}: losses "
+        f"{[round(v, 4) for v in vals]}; {1e3 * wall / 10:.3f} ms/step, "
+        f"{B * L * 10 / wall:.1f} tokens/s over 10 steps, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, profiled "
+        f"device busy {prof_last['busy_ms']:.3f} ms/step "
+        f"({100 * prof_last['busy_share']:.1f}%), flash launches "
+        f"fwd/dq/dkv {launches} = {Lyr} x 10")
+    return launches
+
+
+def phase19_ragged(model, reqs, card):
+    """(3) phase 3's traffic at the ERNIE width (``serve``: 8 slots,
+    max_len 512, block 16, budget 256, buckets [64, 128], 2 arrivals a
+    step, bf16, graphs), plain and with a 1-layer GPT draft at K 2.
+    Returns (the plain streams, B1 launches, B5 launches)."""
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTModel
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+
+    c = model.config
+    Lyr = c.num_layers
+    serve(model, reqs[:8])                                  # warm-up
+    eng, wall, got, budgets = serve(model, reqs)
+    _, pool_bytes, grown = serve.last_warm
+    b1 = check_serve("phase19 ragged", eng, got, budgets, Lyr)
+    streams = [got[r] for r in sorted(got)]
+    tokens = sum(len(v) for v in got.values())
+    say(f"phase19 ERNIE-MoE ragged serve (phase 3's traffic, 24 requests, "
+        f"{tokens} tokens, bf16, graphs) on {card}: {eng.ragged_steps} "
+        f"ragged steps, {tokens / wall:.1f} tokens/s, "
+        f"{1e3 * wall / eng.ragged_steps:.3f} ms/step, graph pool "
+        f"{pool_bytes / 2**20:.1f} MiB (reserved memory grew "
+        f"{grown / 2**20:.1f} MiB over the warmup), B1 launches {b1} = "
+        f"{Lyr} x {eng.ragged_steps}")
+    ties = 0
+    for i in range(4):
+        want = model.generate([reqs[i][0]], reqs[i][1])[0].tolist()
+        ties += not same_or_route_tie(f"phase19 request {i} vs "
+                                      f"generate()", streams[i], want,
+                                      reqs[i][0], [64, 128], model)
+    draft = GPTModel(GPTConfig(vocab_size=c.vocab_size, hidden_size=768,
+                               num_layers=1, num_attention_heads=12,
+                               max_position_embeddings=512,
+                               compute_dtype="bfloat16"),
+                     device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(1))
+    serve(model, reqs[:8], draft_model=draft, draft_k=2)    # warm-up
+    seng, swall, sgot, sbudgets = serve(model, reqs, draft_model=draft,
+                                        draft_k=2)
+    _, spool, _ = serve.last_warm
+    sb1 = rpa.ragged_attention_cuda.launches
+    sb5 = pa.paged_decode_attention_cuda.launches
+    check(sorted(sgot) == sorted(sbudgets)
+          and all(len(sgot[r]) == n for r, n in sbudgets.items()),
+          "phase19 spec: budgets not held")
+    check(seng.blocks_in_use == 0, "phase19 spec: blocks still in use")
+    check(sb1 == (Lyr + 1) * seng.ragged_steps > 0,
+          f"phase19 spec: B1 launches {sb1} != ({Lyr} + 1) x "
+          f"{seng.ragged_steps}")
+    check(sb5 == 2 * 1 * seng.ragged_steps,
+          f"phase19 spec: B5 launches {sb5} != K 2 x 1 x "
+          f"{seng.ragged_steps}")
+    sstreams = [sgot[r] for r in sorted(sgot)]
+    sties = sum(not same_or_route_tie(f"phase19 spec request {i}",
+                                      sstreams[i], streams[i], reqs[i][0],
+                                      [64, 128], model)
+                for i in range(len(reqs)))
+    stokens = sum(len(v) for v in sgot.values())
+    say(f"phase19 the same serve with a 1-layer GPT draft at K 2: "
+        f"{seng.ragged_steps} steps, acceptance "
+        f"{seng.acceptance_rate:.3f}, {stokens / swall:.1f} tokens/s, "
+        f"{1e3 * swall / seng.ragged_steps:.3f} ms/step, graph pool "
+        f"{spool / 2**20:.1f} MiB, B1 {sb1} = 7 x {seng.ragged_steps}, B5 "
+        f"{sb5} = 2 x {seng.ragged_steps}; streams equal to the plain "
+        f"arm's but {sties} near-ties of 24; 4 requests vs generate(): "
+        f"{ties} near-ties")
+    return streams, b1 + sb1, sb5
+
+
+def phase19_bucketed(model, reqs, streams, card):
+    """(4) the first 12 requests through the bucketed paged engine
+    (8 slots, max_len 512, block 16, buckets [64, 128], ticks_per_sync
+    8): B5 6 launches a tick, B2 6 an admission at bucket 128, streams
+    equal to the ragged arm's.  Returns (B5, B2) launches."""
+    from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.serving_paged import PagedContinuousBatchingEngine
+
+    Lyr, k = model.config.num_layers, 8
+    sub = reqs[:12]
+
+    def paged():
+        return PagedContinuousBatchingEngine(
+            model, max_slots=8, max_len=512, block_size=16,
+            prompt_buckets=[64, 128], ticks_per_sync=k, device="cuda")
+
+    serve_upfront(paged(), [(p, 16) for p, _ in sub[:8]])   # warm-up
+    eng = paged()
+    wall, got, budgets = serve_upfront(eng, sub)
+    b5 = pa.paged_decode_attention_cuda.launches
+    b2 = A.flash_fwd_cuda.launches
+    ticks = eng.decode_syncs * k
+    check(sorted(got) == sorted(budgets)
+          and all(len(got[r]) == n for r, n in budgets.items()),
+          "phase19 bucketed: budgets not held")
+    check(eng.blocks_in_use == 0, "phase19 bucketed: blocks in use")
+    check(b5 == Lyr * ticks > 0, f"phase19 bucketed: B5 launches {b5} != "
+                                 f"{Lyr} x {ticks} ticks")
+    # a 64-token bucket's prefill takes the dense path (flash_attention
+    # tiles L by 128), a 128-token one flash_fwd
+    n128 = sum(len(p) > 64 for p, _ in sub)
+    check(b2 == Lyr * n128, f"phase19 bucketed: flash_fwd launches {b2} "
+                            f"!= {Lyr} x {n128} admissions at bucket 128")
+    ties = sum(not same_or_route_tie(f"phase19 bucketed request {i}",
+                                     got[r], streams[i], sub[i][0],
+                                     [64, 128], model)
+               for i, r in enumerate(sorted(got)))
+    tokens = sum(n for _, n in sub)
+    say(f"phase19 ERNIE-MoE bucketed paged serve (the first 12 requests, "
+        f"{tokens} tokens, ticks_per_sync {k}) on {card}: "
+        f"{eng.decode_syncs} syncs = {ticks} ticks, {tokens / wall:.1f} "
+        f"tokens/s, {1e3 * wall / eng.decode_syncs:.3f} ms/sync, B5 "
+        f"launches {b5} = {Lyr} x {ticks}, flash_fwd {b2} = {Lyr} x "
+        f"{n128} (the admissions at bucket 128); "
+        f"streams equal to the ragged arm's but {ties} near-ties")
+    return b5, b2
+
+
+def moe_gather_literal(x, gate_w, w1, b1, w2, b2, k):
+    """The reference's ``moe_ffn_gather`` written literally: k expert
+    weight slices gathered a token (timed against the port's form)."""
+    import torch.nn.functional as F
+
+    probs = torch.softmax(x.float() @ gate_w.float(), -1)
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[:, :k], top_e[:, :k]
+    gates = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    h1 = F.gelu(torch.einsum("th,tkhi->tki", x, w1[top_e]) + b1[top_e],
+                approximate="tanh")
+    out = torch.einsum("tki,tkih->tkh", h1, w2[top_e]) + b2[top_e]
+    return (out.float() * gates[..., None]).sum(1).to(x.dtype)
+
+
+def phase19_gather_cost(model, card):
+    """The decode FFN's two formulations at the serving shapes (bf16,
+    layer 0's weights): the port's every-expert form against the
+    literal per-token gather, T 1, 8 and 256 rows."""
+    from paddle_tpu_torch.ops.moe import moe_ffn_gather
+
+    with torch.no_grad():
+        w = model._experts(0)
+        g = torch.Generator("cuda").manual_seed(3)
+        for T in (1, 8, 256):
+            x = torch.randn(T, model.config.hidden_size, generator=g,
+                            device="cuda").to(
+                torch.bfloat16)
+            ours = moe_ffn_gather(x, *w, k=2)
+            lit = moe_gather_literal(x, *w, k=2)
+            err = (ours.float() - lit.float()).abs().max().item()
+            scale = lit.float().abs().max().item()
+            t_ours = time_cold_ms(lambda: moe_ffn_gather(x, *w, k=2),
+                                  iters=10)
+            t_lit = time_cold_ms(lambda: moe_gather_literal(x, *w, k=2),
+                                 iters=10)
+            say(f"phase19 MoE decode FFN at T {T} (bf16, hidden 768, 8 "
+                f"experts, top-2) on {card}: every-expert form {t_ours:.4f} "
+                f"ms, literal gather {t_lit:.4f} ms, max abs diff "
+                f"{err:.3e} of max {scale:.3e}")
+            check(err <= 2e-2 * max(scale, 1.0),
+                  f"phase19: the two forms differ by {err} at T {T}")
+
+
+def phase19_optimizers(card):
+    """(5) each of the ten optimizers for 3 eager ``step()`` calls on card
+    tensors with fixed gradients, with no clip and each clip, against the
+    same run on the CPU (fp32)."""
+    import paddle_tpu_torch.nn.clip as C
+    import paddle_tpu_torch.optimizer as O
+
+    opts = {
+        "SGD": lambda ps, cl: O.SGD(0.05, parameters=ps, grad_clip=cl),
+        "Momentum": lambda ps, cl: O.Momentum(0.05, parameters=ps,
+                                              use_nesterov=True,
+                                              grad_clip=cl),
+        "Adam": lambda ps, cl: O.Adam(0.01, parameters=ps, grad_clip=cl),
+        "AdamW": lambda ps, cl: O.AdamW(0.01, parameters=ps, grad_clip=cl),
+        "Adamax": lambda ps, cl: O.Adamax(0.01, parameters=ps, grad_clip=cl),
+        "Adagrad": lambda ps, cl: O.Adagrad(0.05, parameters=ps,
+                                            grad_clip=cl),
+        "Adadelta": lambda ps, cl: O.Adadelta(1.0, parameters=ps,
+                                              grad_clip=cl),
+        "RMSProp": lambda ps, cl: O.RMSProp(0.01, momentum=0.5,
+                                            centered=True, parameters=ps,
+                                            grad_clip=cl),
+        "Lamb": lambda ps, cl: O.Lamb(0.01, parameters=ps, grad_clip=cl),
+        "Lars": lambda ps, cl: O.Lars(0.1, lars_coeff=0.01, parameters=ps,
+                                      grad_clip=cl,
+                                      exclude_from_weight_decay=["b"]),
+    }
+    clips = {None: lambda: None, "value": lambda: C.ClipGradByValue(0.05),
+             "norm": lambda: C.ClipGradByNorm(0.5),
+             "global": lambda: C.ClipGradByGlobalNorm(0.5)}
+    rng = np.random.RandomState(5)
+    shapes = {"w": (256, 768), "b": (768,), "e": (8, 64, 32)}
+    p0 = {n: rng.standard_normal(s).astype(np.float32)
+          for n, s in shapes.items()}
+    grads = [{n: (0.1 * rng.standard_normal(s)).astype(np.float32)
+              for n, s in shapes.items()} for _ in range(3)]
+    worst = 0.0
+    for name, make in opts.items():
+        for clip, mk in clips.items():
+            out = {}
+            for dev in ("cuda", "cpu"):
+                ps = {n: torch.nn.Parameter(torch.from_numpy(v.copy())
+                                            .to(dev))
+                      for n, v in p0.items()}
+                opt = make(list(ps.items()), mk())
+                for g in grads:
+                    for n, p in ps.items():
+                        p.grad = torch.from_numpy(g[n]).to(dev)
+                    opt.step()
+                out[dev] = {n: p.detach().cpu() for n, p in ps.items()}
+            for n in shapes:
+                a, b = out["cuda"][n], out["cpu"][n]
+                err = (a - b).abs().max().item()
+                worst = max(worst, err)
+                check(torch.allclose(a, b, rtol=OPT_RTOL, atol=OPT_ATOL),
+                      f"phase19 optimizers: {name} clip {clip} {n} differs "
+                      f"by {err}")
+    say(f"phase19 eager optimizers on {card}: 10 optimizers x 4 clip "
+        f"settings x 3 steps over {sum(np.prod(s) for s in shapes.values())}"
+        f" fp32 parameters, card vs CPU worst abs diff {worst:.3e} (tol "
+        f"{OPT_ATOL} + {OPT_RTOL} of the value)")
+
+
+def phase19(card):
+    """ERNIE-MoE training and serving, and the eager optimizers.  Returns
+    the launches of (B1, B2, B3, B4, B5) in the main-path runs: the timed
+    train, both ragged serves and the bucketed serve."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    t0 = time.perf_counter()
+    phase19_card_vs_cpu()
+    gc.collect()
+    flash = phase19_train(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = ernie_model("cuda")
+    reqs = serving_traffic(model.config.vocab_size)
+    streams, b1, b5_spec = phase19_ragged(model, reqs, card)
+    b5, b2 = phase19_bucketed(model, reqs, streams, card)
+    phase19_gather_cost(model, card)
+    del model
+    gc.collect()
+    phase19_optimizers(card)
+    pa.paged_decode_attention_cuda.launches = 0
+    say(f"phase19 took {time.perf_counter() - t0:.1f} s")
+    return b1, flash[0] + b2, flash[1], flash[2], b5 + b5_spec
+
+
 def bytes_ops_bound(nbytes, flops):
     """(ms, "bytes"|"operations") of the larger bound; fp32 flops."""
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -3523,6 +4031,8 @@ def main():
     gen_launches = phase17(card)
     gc.collect()
     tel_launches = phase18(card)
+    gc.collect()
+    moe_launches = phase19(card)
 
     ms, plain_ms, library_ms, bound_ms, bound_by, _ = t = time_pack(main_pack)
     say_pack_time("bf16 pools at the phase-3 shapes", t, card)
@@ -3567,20 +4077,25 @@ def main():
         f"(phase 17's store serves) + {tel_launches[0]} (phase 18's "
         f"serves); flash_fwd {flash_launches[0]} (phase 6) + "
         f"{gen_launches[2]} (phase 17's generation prefills) + "
-        f"{tel_launches[2][0]} (phase 18's admissions and train steps); "
+        f"{tel_launches[2][0]} (phase 18's admissions and train steps) + "
+        f"{moe_launches[1]} (phase 19's ERNIE-MoE train and admissions); "
         f"flash dq/dkv {flash_launches[1:]} (phase 6) + "
-        f"{tel_launches[2][1:]} (phase 18); paged decode {decode_launches} "
-        f"(phase 12) + {gen_launches[1]} (phase 17's store serves) + "
-        f"{tel_launches[1]} (phase 18)")
+        f"{tel_launches[2][1:]} (phase 18) + {moe_launches[2:4]} (phase "
+        f"19); paged decode {decode_launches} (phase 12) + "
+        f"{gen_launches[1]} (phase 17's store serves) + {tel_launches[1]} "
+        f"(phase 18) + {moe_launches[4]} (phase 19's serves); ragged also "
+        f"+ {moe_launches[0]} (phase 19's ERNIE-MoE serves)")
     say(card)                        # the nvidia-smi name,power.limit line
     pack = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
     rows = [kernel_row("ragged_paged_attention", KERNEL_SOURCE,
                        KERNEL_REPLACES,
-                       launches + gen_launches[0] + tel_launches[0], pack)]
+                       launches + gen_launches[0] + tel_launches[0]
+                       + moe_launches[0], pack)]
     flash_launches = tuple(
-        a + b for a, b in zip((flash_launches[0] + gen_launches[2],
-                               *flash_launches[1:]), tel_launches[2]))
+        a + b + c for a, b, c in zip((flash_launches[0] + gen_launches[2],
+                                      *flash_launches[1:]), tel_launches[2],
+                                     moe_launches[1:4]))
     rows += [kernel_row(name, FLASH_SOURCE, FLASH_REPLACES[name], n, r)
              for (name, r), n in zip(flash.items(), flash_launches)]
     rows += [kernel_row(name, FUSED_SOURCE, FUSED_REPLACES[name], n, r)
@@ -3588,7 +4103,8 @@ def main():
                                      (*ln_launches, adamw_launches))]
     rows.append(kernel_row(
         "paged_decode_attention", PAGED_SOURCE, PAGED_REPLACES,
-        decode_launches + gen_launches[1] + tel_launches[1],
+        decode_launches + gen_launches[1] + tel_launches[1]
+        + moe_launches[4],
         dict(max_abs_err=decode_err, ms=d[0], plain_ms=d[1], library_ms=d[2],
              bound_ms=d[4], bound_by=d[5])))
     say(json.dumps({"kernels": rows}))

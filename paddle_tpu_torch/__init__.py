@@ -73,6 +73,18 @@ and the telemetry core, host-side only, wired into the four engines (a
   exports), ``telemetry_memory`` (``MemoryLedger``), ``telemetry_ledger``
   (``RunLedger``, ``FlightRecorder``), ``profiler``, ``utils.stats``
   (histograms, the process-wide registry)
+
+and ERNIE-MoE with the rest of the optimizer surface, on the kernels
+above (the flash kernels train it, the ragged and paged decode kernels
+serve it):
+
+- ``ops.moe`` (gating, the one-hot, index and capacity-free dispatches),
+  ``models.ernie_moe`` (``ErnieMoeModel``, ``make_ernie_moe_train_step``;
+  ``models.gpt.StackedDecoder`` holds what it shares with GPT)
+- ``optimizer.lr`` (the LR schedulers), ``nn.clip`` (the gradient
+  clips), ``optimizer`` (the eager ``step()``, ``state_dict``, Adamax,
+  Adagrad, Adadelta, RMSProp, Lamb, Lars), ``distributed.spmd``
+  (``donate=False``)
 """
 
 import torch

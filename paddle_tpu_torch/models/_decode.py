@@ -438,8 +438,8 @@ class CausalDecoderMixin:
     tokens and its clock on the device.
 
     Host-class contract: ``self.config`` (vocab_size, compute_dtype,
-    max_position_embeddings, num_layers, num_attention_heads, hidden_size,
-    kv_cache_dtype), ``prefill(ids, max_len, pad_lens) -> (h, caches)``,
+    max_position_embeddings, num_layers, num_attention_heads, hidden_size;
+    ``kv_cache_dtype`` where the family has one), ``prefill(ids, max_len, pad_lens) -> (h, caches)``,
     ``decode_step(h, caches, t, pad_lens) -> (h, caches)``,
     ``decode_logits(h) -> fp32 (B, k, V)``, ``embed_fn(ids)`` and the
     ``wte``/``wpe`` parameters."""
@@ -526,7 +526,7 @@ class CausalDecoderMixin:
         nh = c.num_attention_heads
         shape = (c.num_layers, batch_size, max_len, nh, c.hidden_size // nh)
         dev = self.wte.device
-        if c.kv_cache_dtype == "int8":
+        if getattr(c, "kv_cache_dtype", None) == "int8":
             def one():
                 return (torch.zeros(shape, dtype=torch.int8, device=dev),
                         torch.zeros(shape[:-1], dtype=torch.float32,
@@ -1189,23 +1189,27 @@ def load_generate_program(path: str, device=None):
     import pickle
 
     from .. import resolve_device
-    from .gpt import GPTConfig, params_from_numpy
+    from . import ernie_moe, gpt
 
+    families = {"GPTModel": (gpt.GPTConfig, gpt.params_from_numpy),
+                "ErnieMoeModel": (ernie_moe.ErnieMoeConfig,
+                                  ernie_moe.params_from_numpy)}
     with open(path + ".genmodel", "rb") as f:
         spec = pickle.load(f)
     with open(path + ".genparams", "rb") as f:
         params = pickle.load(f)
     with open(path + ".genmeta", "rb") as f:
         meta = pickle.load(f)
-    if spec.get("format") != _GENMODEL_FORMAT or spec["model"] != "GPTModel":
+    if spec.get("format") != _GENMODEL_FORMAT or \
+            spec.get("model") not in families:
         raise ValueError(f"{path}.genmodel is not a {_GENMODEL_FORMAT} "
-                         f"GPTModel artifact")
+                         f"artifact of one of {sorted(families)}")
     dev = resolve_device(device)
     if dev.type not in meta["platforms"]:
         raise ValueError(f"artifact exported for {meta['platforms']}, not "
                          f"{dev.type}")
-    model = params_from_numpy(params, GPTConfig(**spec["config"]),
-                              device=dev)
+    config_cls, build = families[spec["model"]]
+    model = build(params, config_cls(**spec["config"]), device=dev)
     shape = (meta["batch_size"], meta["prompt_len"])
 
     def fn(input_ids, seed=0, prompt_mask=None):

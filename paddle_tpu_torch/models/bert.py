@@ -287,8 +287,10 @@ def make_bert_train_step(model: BertModel, optimizer, hcg=None,
     input_ids, mlm_labels, nsp_labels) -> (state, loss)``, with ``state =
     {"params", "opt", "buffers"}`` and ``state["params"]`` the model's own
     parameters, updated in place with the optimizer slots
-    (``distributed.spmd``).  ``hcg`` is None or a one-device hybrid group;
-    parallel degrees raise ``NotImplementedError`` (ROADMAP A7)."""
+    (``distributed.spmd``); ``donate=False`` leaves the given state and
+    the model untouched and returns a fresh state.  ``hcg`` is None or a
+    one-device hybrid group; parallel degrees raise
+    ``NotImplementedError`` (ROADMAP A7)."""
     from ..distributed.spmd import make_gspmd_step_from_loss
 
     degrees = _mesh_degrees(hcg)
@@ -298,12 +300,12 @@ def make_bert_train_step(model: BertModel, optimizer, hcg=None,
             f"port (ROADMAP A7); pass hcg=None or a one-device group")
 
     def loss_of(params, input_ids, mlm_labels, nsp_labels):
-        # ``params`` are ``model``'s own parameters: the model reads them
+        # ``params`` are the tensors ``model`` holds for this call
         return model.pretrain_loss_fn(input_ids, mlm_labels, nsp_labels,
                                       remat=remat)
 
     return make_gspmd_step_from_loss(loss_of, dict(model.named_parameters()),
-                                     optimizer, donate=donate)
+                                     optimizer, layer=model, donate=donate)
 
 
 def make_sharded_bert_train_step(cfg: BertConfig, optimizer, hcg,

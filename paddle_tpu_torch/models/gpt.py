@@ -115,20 +115,19 @@ def _layer(pool, l):
     return tuple(p[l] for p in pool) if isinstance(pool, tuple) else pool[l]
 
 
-class GPTModel(CausalDecoderMixin, nn.Module):
-    """Decoder-only transformer with stacked block parameters.
+class StackedDecoder(CausalDecoderMixin, nn.Module):
+    """What the port's causal LMs share: stacked ``blocks_*`` parameters
+    with a pre-LN fused-QKV attention half, weights cast to
+    ``config.compute_dtype`` (``_cw``), and the KV-cache paths (the ragged
+    pack, ``prefill``, ``decode_step``) as a loop over layers.  A subclass
+    defines the block's second half, ``_block_post_attn(l, h, att)``, and
+    may give ``prefill`` its own (``_prefill_post_attn``)."""
 
-    ``device`` defaults to ``cuda``; ``generator`` (a ``torch.Generator``
-    on that device, default seeded 0) draws the N(0, initializer_range)
-    weights, with proj/fc2 at ``initializer_range / sqrt(2L)``."""
-
-    def __init__(self, config: GPTConfig, *, device=None, generator=None):
-        super().__init__()
-        dev = resolve_device(device)
-        self.config = c = config
-        L, H, V = c.num_layers, c.hidden_size, c.vocab_size
-        I = c.intermediate_size
-        std = c.initializer_range
+    @staticmethod
+    def _initializers(dev, std, generator):
+        """(normal, zeros, ones): fp32 parameter makers on ``dev``;
+        ``normal(shape, s=std)`` draws N(0, s) from ``generator`` (default
+        seeded 0; nothing is drawn on the meta device)."""
         if generator is None and dev.type != "meta":
             generator = torch.Generator(device=dev).manual_seed(0)
 
@@ -144,31 +143,7 @@ class GPTModel(CausalDecoderMixin, nn.Module):
         def ones(shape):
             return nn.Parameter(torch.ones(shape, device=dev))
 
-        self.wte = normal([V, H])
-        self.wpe = normal([c.max_position_embeddings, H])
-        self.blocks_ln1_w = ones([L, H])
-        self.blocks_ln1_b = zeros([L, H])
-        self.blocks_qkv_w = normal([L, H, 3 * H])
-        self.blocks_qkv_b = zeros([L, 3 * H])
-        self.blocks_proj_w = normal([L, H, H], std / math.sqrt(2 * L))
-        self.blocks_proj_b = zeros([L, H])
-        self.blocks_ln2_w = ones([L, H])
-        self.blocks_ln2_b = zeros([L, H])
-        self.blocks_fc1_w = normal([L, H, I])
-        self.blocks_fc1_b = zeros([L, I])
-        self.blocks_fc2_w = normal([L, I, H], std / math.sqrt(2 * L))
-        self.blocks_fc2_b = zeros([L, H])
-        self.lnf_w = ones([H])
-        self.lnf_b = zeros([H])
-        if not c.tie_word_embeddings:
-            self.lm_head = normal([H, V])
-        self._casts = {}
-
-    @staticmethod
-    def stacked_param_names():
-        return [f"blocks_{n}" for n in ("ln1_w", "ln1_b", "qkv_w", "qkv_b",
-                                        "proj_w", "proj_b", "ln2_w", "ln2_b",
-                                        "fc1_w", "fc1_b", "fc2_w", "fc2_b")]
+        return normal, zeros, ones
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -217,20 +192,17 @@ class GPTModel(CausalDecoderMixin, nn.Module):
         return (q.reshape(B, Lq, nh, hd), k.reshape(B, Lq, nh, hd),
                 v.reshape(B, Lq, nh, hd))
 
-    def _block_post_attn(self, l, h, att):
-        """Layer ``l``'s output projection + residual + MLP half."""
-        dt = h.dtype
+    def _attn_residual(self, l, h, att):
+        """Layer ``l``'s output projection + residual."""
         B, Lq, H = h.shape
-        att = att.reshape(B, Lq, H)
-        h = h + att @ self._cw("blocks_proj_w", l) \
+        return h + att.reshape(B, Lq, H) @ self._cw("blocks_proj_w", l) \
             + self._cw("blocks_proj_b", l)
-        m_in = self._block_ln(h, self.blocks_ln2_w[l], self.blocks_ln2_b[l],
-                              dt)
-        approx = "tanh" if self.config.hidden_act == "gelu_approx" else "none"
-        ff = F.gelu(m_in @ self._cw("blocks_fc1_w", l)
-                    + self._cw("blocks_fc1_b", l), approximate=approx)
-        return h + ff @ self._cw("blocks_fc2_w", l) \
-            + self._cw("blocks_fc2_b", l)
+
+    def _block_post_attn(self, l, h, att):
+        raise NotImplementedError
+
+    def _prefill_post_attn(self, l, h, att):
+        return self._block_post_attn(l, h, att)
 
     def _block_decode_ragged(self, l, h, pck, pcv, table, row_seq, row_pos,
                              pad_lens, plan):
@@ -300,7 +272,7 @@ class GPTModel(CausalDecoderMixin, nn.Module):
         for l in range(c.num_layers):
             q, k, v = self._block_qkv(l, h)
             att = flash_attention(q, k, v, causal=True, key_mask=key_mask)
-            h = self._block_post_attn(l, h, att)
+            h = self._prefill_post_attn(l, h, att)
             write_cache(_layer(ck, l), k, 0)
             write_cache(_layer(cv, l), v, 0)
         return h, (ck, cv)
@@ -315,6 +287,64 @@ class GPTModel(CausalDecoderMixin, nn.Module):
             h = self._block_decode(l, h, _layer(ck, l), _layer(cv, l), t,
                                    pad_lens=pad_lens)
         return h, caches
+
+    def embed_fn(self, input_ids, key=None):
+        pos = torch.arange(input_ids.shape[-1], device=input_ids.device)
+        h = F.embedding(input_ids.long(), self.wte) + self.wpe[pos]
+        return h.to(self.compute_dtype)
+
+
+class GPTModel(StackedDecoder):
+    """Decoder-only transformer with stacked block parameters.
+
+    ``device`` defaults to ``cuda``; ``generator`` (a ``torch.Generator``
+    on that device, default seeded 0) draws the N(0, initializer_range)
+    weights, with proj/fc2 at ``initializer_range / sqrt(2L)``."""
+
+    def __init__(self, config: GPTConfig, *, device=None, generator=None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.config = c = config
+        L, H, V = c.num_layers, c.hidden_size, c.vocab_size
+        I = c.intermediate_size
+        std = c.initializer_range
+        normal, zeros, ones = self._initializers(dev, std, generator)
+        self.wte = normal([V, H])
+        self.wpe = normal([c.max_position_embeddings, H])
+        self.blocks_ln1_w = ones([L, H])
+        self.blocks_ln1_b = zeros([L, H])
+        self.blocks_qkv_w = normal([L, H, 3 * H])
+        self.blocks_qkv_b = zeros([L, 3 * H])
+        self.blocks_proj_w = normal([L, H, H], std / math.sqrt(2 * L))
+        self.blocks_proj_b = zeros([L, H])
+        self.blocks_ln2_w = ones([L, H])
+        self.blocks_ln2_b = zeros([L, H])
+        self.blocks_fc1_w = normal([L, H, I])
+        self.blocks_fc1_b = zeros([L, I])
+        self.blocks_fc2_w = normal([L, I, H], std / math.sqrt(2 * L))
+        self.blocks_fc2_b = zeros([L, H])
+        self.lnf_w = ones([H])
+        self.lnf_b = zeros([H])
+        if not c.tie_word_embeddings:
+            self.lm_head = normal([H, V])
+        self._casts = {}
+
+    @staticmethod
+    def stacked_param_names():
+        return [f"blocks_{n}" for n in ("ln1_w", "ln1_b", "qkv_w", "qkv_b",
+                                        "proj_w", "proj_b", "ln2_w", "ln2_b",
+                                        "fc1_w", "fc1_b", "fc2_w", "fc2_b")]
+
+    def _block_post_attn(self, l, h, att):
+        """Layer ``l``'s output projection + residual + MLP half."""
+        h = self._attn_residual(l, h, att)
+        m_in = self._block_ln(h, self.blocks_ln2_w[l], self.blocks_ln2_b[l],
+                              h.dtype)
+        approx = "tanh" if self.config.hidden_act == "gelu_approx" else "none"
+        ff = F.gelu(m_in @ self._cw("blocks_fc1_w", l)
+                    + self._cw("blocks_fc1_b", l), approximate=approx)
+        return h + ff @ self._cw("blocks_fc2_w", l) \
+            + self._cw("blocks_fc2_b", l)
 
     # ------------------------------------------------------------- head --
 
@@ -339,11 +369,6 @@ class GPTModel(CausalDecoderMixin, nn.Module):
     # --------------------------------------------------------- training --
     # The reference's pure functions take a params pytree; here they read
     # the module's own parameters, which the train step updates in place.
-
-    def embed_fn(self, input_ids, key=None):
-        pos = torch.arange(input_ids.shape[-1], device=input_ids.device)
-        h = F.embedding(input_ids.long(), self.wte) + self.wpe[pos]
-        return h.to(self.compute_dtype)
 
     def block_fn(self, l, h, key=None):
         """Layer ``l``: pre-LN causal flash attention, then the MLP half."""
@@ -428,8 +453,10 @@ def make_gpt_train_step(model: GPTModel, optimizer, hcg=None,
                         update_sharding: bool = False):
     """The GPT train step on one device: ``step(state, key, lr, input_ids,
     labels) -> (state, loss)``, with ``state = {"params", "opt",
-    "buffers"}`` and ``state["params"]`` the model's own parameters, updated
-    in place with the optimizer slots (``distributed.spmd``).
+    "buffers"}``.  With ``donate`` (the default) ``state["params"]`` are
+    the model's own parameters, updated in place with the optimizer slots;
+    ``donate=False`` leaves the given state and the model untouched and
+    returns a fresh state (``distributed.spmd``).
 
     ``hcg`` is None or a one-device hybrid group.  ``key`` (a
     ``torch.Generator`` or an int) is accepted and not read: GPT's block
@@ -438,9 +465,11 @@ def make_gpt_train_step(model: GPTModel, optimizer, hcg=None,
     call synchronises the card once and is the compile event, later calls
     are ``train_step`` samples and add no synchronisation; None returns
     the bare step.  ``dynamic_loss_scale`` and ``virtual_pp_degree`` are
-    ignored on this path, as in the reference's.  Pipeline or model
-    parallelism, ZeRO, update sharding, a non-fp32 ``grad_comm`` and
-    microbatches raise ``NotImplementedError`` (ROADMAP A7 and A2)."""
+    ignored on this path, as in the reference's, and so is
+    ``n_microbatches``: the reference reads it only on its pipeline
+    branch and runs the whole batch on one device.  Pipeline or model
+    parallelism, ZeRO, update sharding and a non-fp32 ``grad_comm`` raise
+    ``NotImplementedError`` (ROADMAP A7)."""
     from ..distributed.spmd import make_gspmd_step_from_loss
     from ..telemetry import instrument_train_step
 
@@ -452,17 +481,15 @@ def make_gpt_train_step(model: GPTModel, optimizer, hcg=None,
     if update_sharding:
         raise NotImplementedError("update_sharding is not ported yet "
                                   "(ROADMAP A7)")
-    if n_microbatches > 1:
-        raise NotImplementedError("microbatch accumulation is not ported "
-                                  "yet (ROADMAP A2)")
 
     def loss_of(params, key, x, labels):
-        # ``params`` are ``model``'s own parameters: the model reads them
+        # ``params`` are the tensors ``model`` holds for this call (its own
+        # parameters, or the state's swapped in when not donating)
         h = model.scan_blocks(model.embed_fn(x, key), key, remat=remat)
         return model.head_loss_fn(h, labels)
 
     raw, state0 = make_gspmd_step_from_loss(
-        loss_of, dict(model.named_parameters()), optimizer,
+        loss_of, dict(model.named_parameters()), optimizer, layer=model,
         zero_stage=zero_stage, donate=donate, grad_comm=grad_comm)
     inner = instrument_train_step(raw, monitor, "gpt")
 

@@ -203,7 +203,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         hd = c.hidden_size // nh
         shape = (c.num_layers, self.NB + 1, self.bs, nh, hd)
         dev = self.device
-        if c.kv_cache_dtype == "int8":
+        if getattr(c, "kv_cache_dtype", None) == "int8":
             def one():
                 return (torch.zeros(shape, dtype=torch.int8, device=dev),
                         torch.zeros(shape[:-1], dtype=torch.float32,
@@ -640,7 +640,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         stream for the widest table (``reserve_workspace``), for every
         floating-point pool the kernel walks."""
         for c in self._paged_decode_configs():
-            if c.kv_cache_dtype == "int8":
+            if getattr(c, "kv_cache_dtype", None) == "int8":
                 continue                   # int8 pools take the gather path
             nh = c.num_attention_heads
             reserve_workspace(self.device, self._capture_stream.cuda_stream,

@@ -221,8 +221,21 @@ class TestTrainStep:
 
         with pytest.raises(NotImplementedError, match="A7"):
             TB.make_bert_train_step(tm, opt, TwoWay())
-        with pytest.raises(NotImplementedError, match="in place"):
-            TB.make_bert_train_step(tm, opt, donate=False)
+        # donate=False (ported): a fresh state, the model untouched, the
+        # donated step's loss
+        _, ta = _pair()
+        own = {n: p.detach().clone() for n, p in tm.named_parameters()}
+        kept, s0 = TB.make_bert_train_step(tm, TO.AdamW(1e-4), donate=False)
+        donated, sa = TB.make_bert_train_step(ta, TO.AdamW(1e-4))
+        batch = [torch.tensor(a) for a in _batch(3)]
+        s1, lk = kept(s0, 1e-4, *batch)
+        _, ld = donated(sa, 1e-4, *batch)
+        assert float(lk) == pytest.approx(float(ld), rel=1e-6)
+        for n, p in tm.named_parameters():
+            assert torch.equal(p.detach(), own[n]) and s0["params"][n] is p
+            torch.testing.assert_close(s1["params"][n],
+                                       dict(ta.named_parameters())[n]
+                                       .detach(), rtol=1e-5, atol=1e-6)
         with pytest.raises(NotImplementedError, match="A7"):
             TB.make_sharded_bert_train_step(TB.BertConfig(**TINY), opt, None)
         with pytest.raises(ValueError, match="remat"):

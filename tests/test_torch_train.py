@@ -186,12 +186,33 @@ class TestOptimizers:
                            torch.tensor([-1.0, 0.0, 1.5]))
 
     def test_unported_surfaces_raise(self):
-        with pytest.raises(NotImplementedError, match="grad_clip"):
-            TO.AdamW(1e-3, grad_clip=object())
-        with pytest.raises(NotImplementedError, match="scheduler"):
-            TO.Adam(learning_rate=object())
-        with pytest.raises(NotImplementedError, match="step"):
+        """Ported since: grad_clip, a scheduler as the rate and the eager
+        step, each checked against the reference's."""
+        from paddle_tpu.core.tensor import Parameter
+        import paddle_tpu.nn.clip as JC
+        import paddle_tpu_torch.nn.clip as TC
+        g = np.array([3.0, -4.0], np.float32)
+        jnew, _ = JO.SGD(1.0, grad_clip=JC.ClipGradByGlobalNorm(1.0)).update(
+            {"w": jnp.asarray(g)}, {"step": jnp.zeros((), jnp.int32),
+                                    "slots": {"w": {}}},
+            {"w": jnp.zeros(2)})
+        tnew, _ = TO.SGD(1.0, grad_clip=TC.ClipGradByGlobalNorm(1.0)).update(
+            {"w": torch.tensor(g)}, TO.SGD(1.0).init_state(
+                {"w": torch.zeros(2)}), {"w": torch.zeros(2)})
+        np.testing.assert_allclose(tnew["w"].numpy(), np.asarray(jnew["w"]),
+                                   rtol=1e-6)
+        assert TO.Adam(learning_rate=TO.lr.StepDecay(0.1, 2)).get_lr() == \
+            JO.Adam(learning_rate=JO.lr.StepDecay(0.1, 2)).get_lr() == 0.1
+        with pytest.raises(ValueError, match="parameter list"):
             TO.SGD(0.1).step()
+        jp = Parameter(jnp.ones(2))
+        jp._grad = jnp.asarray(g)
+        tp = torch.nn.Parameter(torch.ones(2))
+        tp.grad = torch.tensor(g)
+        JO.SGD(0.1, parameters=[jp]).step()
+        TO.SGD(0.1, parameters=[tp]).step()
+        np.testing.assert_allclose(tp.detach().numpy(), np.asarray(jp._data),
+                                   rtol=1e-6)
         opt = TO.SGD(0.1)
         opt.set_lr(0.5)
         assert opt.get_lr() == 0.5
@@ -274,14 +295,32 @@ class TestTrainStep:
             def get_data_parallel_world_size(self):
                 return 2
 
-        for kw, match in ((dict(n_microbatches=2), "microbatch"),
-                          (dict(zero_stage=1), "zero_stage"),
+        for kw, match in ((dict(zero_stage=1), "zero_stage"),
                           (dict(update_sharding=True), "update_sharding"),
                           (dict(grad_comm="bf16"), "grad_comm"),
-                          (dict(donate=False), "in place"),
                           (dict(hcg=TwoWay()), "distributed")):
             with pytest.raises(NotImplementedError, match=match):
                 make_gpt_train_step(tm, opt, **kw)
+        # ported since: n_microbatches on one device (the whole batch, as
+        # the reference) and donate=False (a fresh state, the model
+        # untouched), each giving the plain donated step's loss
+        (x, y), = _batches(1, seed=7)
+        x, y = torch.tensor(x), torch.tensor(y)
+        own = {n: p.detach().clone() for n, p in tm.named_parameters()}
+        kept, s0 = make_gpt_train_step(tm, TO.AdamW(3e-4), donate=False,
+                                       remat=False)
+        _, lk = kept(s0, 0, 3e-4, x, y)
+        for n, p in tm.named_parameters():
+            assert torch.equal(p.detach(), own[n]), n
+        state = {n: p.detach().numpy() for n, p in tm.named_parameters()}
+        losses = []
+        for nmb in (1, 2):
+            tmb = params_from_numpy(state, GPTConfig(
+                **TINY, compute_dtype="float32"), device="cpu")
+            step, st = make_gpt_train_step(tmb, TO.AdamW(3e-4), remat=False,
+                                           n_microbatches=nmb)
+            losses.append(float(step(st, 0, 3e-4, x, y)[1]))
+        assert losses[0] == losses[1] == pytest.approx(float(lk), rel=1e-6)
         with pytest.raises(NotImplementedError, match="sequence_parallel"):
             GPTConfig(**TINY, sequence_parallel="ring")
         with pytest.raises(ValueError, match="sequence_parallel"):
