@@ -231,7 +231,8 @@ Phases (any failure exits non-zero before the result lines):
    surface: (1) card vs CPU at hidden 768, 8 experts, 2 layers, fp32, B 2,
    L 256, 5 steps of AdamW under LinearWarmup(CosineAnnealingDecay) with
    ClipGradByGlobalNorm(1.0) from the same weights: losses within 1e-4
-   relative, final parameters within 3e-3, routing flips (tokens whose
+   relative, final parameters within 1e-5 and their change within 1e-2
+   of its largest element, routing flips (tokens whose
    top-2 experts differ, before and after training) only where the CPU's
    k-th and next gate probabilities are within 1e-5; (2) the full-width
    train at B 8, L 512, AdamW(1e-4, wd 0.01), remat off: 3 warm-up steps,
@@ -247,9 +248,11 @@ Phases (any failure exits non-zero before the result lines):
    T 1, 8 and 256; (5) the ten optimizers for 3 eager ``step()`` calls
    with no clip and each clip, card vs CPU in fp32 within 1e-6 + 1e-5 of
    the value.  A bf16 stream here may leave another where the top-2
-   logit gap is under 2^-5 or where a gate decision of its context (the
-   2nd against the 3rd gate probability) is within 2^-10: 8-bit hidden
-   states that differ by a rounding can route a token to another expert.
+   logit gap is under 2^-5, or at a routing flip that roundings alone
+   caused: both paths of the request are replayed alone and eagerly with
+   routing recorded (each replay must reproduce its stream), the flips
+   of the shared context are found, and each root flip's gate-logit gap
+   must be under 2^-5 too.
 
 Then each kernel is timed at its main path's shapes beside its plain
 version, one PyTorch call computing the same function (``library_ms``,
@@ -3344,12 +3347,13 @@ def phase18(card):
 ERNIE_BENCH = dict(vocab_size=30528, hidden_size=768, num_layers=6,
                    num_attention_heads=12, num_experts=8, top_k=2,
                    max_position_embeddings=512, compute_dtype="bfloat16")
-ERNIE_LOSS_TOL, ERNIE_PARAM_TOL = 1e-4, 3e-3     # phase 5's bounds
+# card vs CPU, fp32: the losses' relative difference; the parameters'
+# largest absolute difference (5 AdamW steps move an element by ~1e-3, so
+# the bound sits well under that); the largest difference of the
+# parameters' change, relative to the change's norm
+ERNIE_LOSS_TOL, ERNIE_PARAM_TOL, ERNIE_DELTA_TOL = 1e-4, 1e-5, 1e-2
 ROUTE_TIE = 1e-5       # fp32 gate probabilities this close may route apart
-# bf16 hidden states carry 8 bits: a rounding (2^-9 of |x| ~ 1 after the
-# LN) moves a gate logit by ~sqrt(H) * 2^-9 * 0.02 ~ 1e-3, a probability
-# near 1/8 by ~1e-4; gate decisions closer than 2^-10 may route apart
-GATE_TIE = 2.0 ** -10
+
 OPT_RTOL, OPT_ATOL = 1e-5, 1e-6   # eager optimizers, card vs CPU, fp32
 
 
@@ -3402,47 +3406,197 @@ def routing_flips(model_a, model_b, ids, k):
     return flips, gap
 
 
-def gate_gap(model, prompt, buckets, prefix):
-    """The smallest gap between the k-th and the next gate probability of
-    ``model``'s no-drop routing over ``prompt`` + ``prefix`` (left-padded
-    to its bucket; real positions only), every layer."""
-    from paddle_tpu_torch.jit.bucketing import select_bucket
+@contextlib.contextmanager
+def routes_by_position():
+    """For runs made inside the block with graphs off: the experts, the
+    gate gap (the k-th chosen less the next gate logit) and the gate
+    logits of every row that an ERNIE-MoE serving path routes, keyed by
+    (logical position, layer).  A row's position comes from its call: a prefill row's index
+    less its pad, a decode row's clock less its pad (active slots only),
+    a ragged row's kv position less its sequence's pad; pad rows and an
+    inactive slot's rows are skipped.  Yields (records, clashes): a key's
+    first record, and the count of later records of a key that chose
+    other experts."""
+    from paddle_tpu_torch import serving as SV
+    from paddle_tpu_torch.jit.programs import disable_graphs
+    from paddle_tpu_torch.models import ernie_moe as EM
 
-    ids = prompt + prefix
-    pad = select_bucket(len(prompt), buckets) - len(prompt)
-    dev = model.wte.device
-    with recorded_routing() as calls, torch.no_grad():
-        model.prefill(torch.tensor([[0] * pad + ids], device=dev),
-                      pad + len(ids),
-                      pad_lens=torch.tensor([pad], dtype=torch.int32,
-                                            device=dev))
-    k = model.config.top_k
-    gaps = [torch.softmax(lg[pad:], -1).sort(-1, descending=True).values
-            for lg, _ in calls]
-    return min(float((p[:, k - 1] - p[:, k]).min()) for p in gaps)
+    M, rec, ctx, clashes = EM.ErnieMoeModel, {}, {"active": None}, [0]
+    saved = [(o, n, o.__dict__.get(n), getattr(o, n)) for o, n in (
+        (M, "prefill"), (M, "_block_decode"), (M, "_block_decode_ragged"),
+        (M, "_block_post_attn"), (SV.ContinuousBatchingEngine,
+                                  "_decode_tick"))]
+    inner = {n: f for _, n, _, f in saved}
+    gather = EM.moe_ffn_gather
+
+    def prefill(self, input_ids, max_len, pad_lens=None):
+        B, P = input_ids.shape
+        pos = torch.arange(P, device=input_ids.device).expand(B, P)
+        if pad_lens is not None:
+            pos = pos - pad_lens.long().reshape(-1, 1)
+        ctx["pos"] = pos.reshape(-1)
+        return inner["prefill"](self, input_ids, max_len, pad_lens)
+
+    def block_decode(self, l, h, ck, cv, t, pad_lens=None):
+        B, k = h.shape[:2]
+        t0 = torch.as_tensor(t, device=h.device).long().reshape(-1)
+        pos = t0.expand(B)[:, None] + torch.arange(k, device=h.device)
+        if pad_lens is not None:
+            pos = pos - pad_lens.long().reshape(-1, 1)
+        if ctx["active"] is not None:
+            pos = torch.where(ctx["active"].reshape(-1, 1), pos, -1)
+        ctx["pos"] = pos.reshape(-1)
+        return inner["_block_decode"](self, l, h, ck, cv, t, pad_lens)
+
+    def block_ragged(self, l, h, pck, pcv, table, row_seq, row_pos,
+                     pad_lens, plan):
+        pos = row_pos.long() - pad_lens.long()[row_seq.long()]
+        ctx["pos"] = torch.where(row_pos >= 0, pos, -1)
+        return inner["_block_decode_ragged"](self, l, h, pck, pcv, table,
+                                             row_seq, row_pos, pad_lens, plan)
+
+    def post_attn(self, l, h, att):
+        ctx["layer"] = l
+        return inner["_block_post_attn"](self, l, h, att)
+
+    def decode_tick(self, caches, tok, t, pads, active, emitted):
+        ctx["active"] = active
+        try:
+            return inner["_decode_tick"](self, caches, tok, t, pads, active,
+                                         emitted)
+        finally:
+            ctx["active"] = None
+
+    def record(x, gate_w, *w, k=2, **kw):
+        logits = x.float() @ gate_w.float()
+        e = torch.sort(torch.softmax(logits, dim=-1), dim=-1,
+                       descending=True, stable=True).indices
+        ranked = logits.gather(1, e[:, k - 1:k + 1])
+        pos = ctx["pos"].cpu().numpy()
+        gaps = (ranked[:, 0] - ranked[:, 1]).abs().cpu().numpy()
+        experts = e[:, :k].sort(-1).values.cpu().numpy()
+        logits = logits.cpu().numpy()
+        for r in np.flatnonzero(pos >= 0):
+            key = (int(pos[r]), ctx["layer"])
+            got = tuple(int(v) for v in experts[r])
+            if key in rec:
+                clashes[0] += rec[key][0] != got
+            else:
+                rec[key] = (got, float(gaps[r]), logits[r])
+        return gather(x, gate_w, *w, k=k, **kw)
+
+    for (o, n, _, _), f in zip(saved, (prefill, block_decode, block_ragged,
+                                       post_attn, decode_tick)):
+        setattr(o, n, f)
+    EM.moe_ffn_gather = record
+    try:
+        with disable_graphs():
+            yield rec, clashes
+    finally:
+        EM.moe_ffn_gather = gather
+        for o, n, own, _ in saved:
+            if own is None:
+                delattr(o, n)
+            else:
+                setattr(o, n, own)
 
 
-def same_or_route_tie(label, got, want, prompt, buckets, model):
-    """``same_or_tie`` for a routed model: ``got`` equals ``want``, or
-    first diverges where the top-2 logit gap is under BF16_TIE or a gate
-    decision of the context (the k-th against the next gate probability)
-    is within GATE_TIE — a routing flip of the 8-bit hidden states.  Both
-    gaps printed; returns True when equal."""
+class ErnieReplays:
+    """One request served again alone, eagerly, with its routing recorded
+    (``routes_by_position``), through the path a stream under test took:
+    "ragged" (phase 3's engine settings), "bucketed" (phase 19's paged
+    engine) or "generate".  Each (path, request) runs once; returns
+    (stream, routes)."""
+
+    def __init__(self, model, reqs):
+        self.model, self.reqs, self.done = model, reqs, {}
+
+    def __call__(self, path, i):
+        from paddle_tpu_torch.serving_paged import (
+            PagedContinuousBatchingEngine,
+            RaggedPagedContinuousBatchingEngine)
+
+        if (path, i) not in self.done:
+            prompt, n = self.reqs[i]
+            kw = dict(max_slots=8, max_len=512, block_size=16,
+                      prompt_buckets=[64, 128], device="cuda")
+            with routes_by_position() as (rec, clashes):
+                if path == "generate":
+                    stream = self.model.generate([prompt], n)[0].tolist()
+                else:
+                    eng = (RaggedPagedContinuousBatchingEngine(
+                        self.model, token_budget=256, **kw)
+                        if path == "ragged" else
+                        PagedContinuousBatchingEngine(
+                            self.model, ticks_per_sync=8, **kw))
+                    rid = eng.add_request(prompt, n)
+                    stream = eng.run_to_completion(max_ticks=5000)[rid]
+            check(clashes[0] == 0, f"phase19 {path} replay of request {i}: "
+                                   f"{clashes[0]} rows routed one position "
+                                   f"and layer apart")
+            self.done[path, i] = (stream, rec)
+        return self.done[path, i]
+
+
+def same_or_route_flip(label, got, want, i, paths, replays):
+    """``got`` (request ``i``'s stream through ``paths[0]``) equals
+    ``want`` (through ``paths[1]``), or first diverges at token j where
+    the flip that explains it is found.  Both paths are replayed alone
+    and eagerly with routing recorded (``ErnieReplays``); each replay
+    must reproduce its stream through token j.  Over the shared context
+    (the prompt and want[:j], every layer) the expert choices of the two
+    replays are compared.  A root flip (one no earlier flip can have
+    caused: none at a position <= its own in a lower layer) has only
+    rounding behind it, so the router's choice there is held to the
+    head's bf16 near-tie rule: its gate-logit gap (the k-th chosen less
+    the next) under BF16_TIE on both paths.  The rounding itself is
+    printed: the largest gate-logit difference of the rows no flip can
+    reach.  With no flip, the divergence is held to the logit rule
+    (top-2 gap under BF16_TIE).  Returns "equal", "flip" or "logit"."""
     n = min(len(got), len(want))
-    j = next((i for i in range(n) if got[i] != want[i]), None)
+    j = next((t for t in range(n) if got[t] != want[t]), None)
     if j is None:
         check(len(got) == len(want), f"{label}: lengths {len(got)} vs "
                                      f"{len(want)} with no differing token")
-        return True
-    lgap = tie_gap(model, prompt, buckets, want[:j])
-    ggap = gate_gap(model, prompt, buckets, want[:j])
-    say(f"{label}: diverges at token {j}: {got[j]} vs {want[j]}, top-2 "
-        f"logit gap {lgap:.3e}, smallest gate gap of the context "
-        f"{ggap:.3e}")
-    check(lgap < BF16_TIE or ggap < GATE_TIE,
-          f"{label}: diverged where the top-2 gap is {lgap} (>= {BF16_TIE}) "
-          f"and the smallest gate gap {ggap} (>= {GATE_TIE})")
-    return False
+        return "equal"
+    prompt = replays.reqs[i][0]
+    (sa, ra), (sb, rb) = replays(paths[0], i), replays(paths[1], i)
+    for path, s, ref in ((paths[0], sa, got), (paths[1], sb, want)):
+        check(s[:j + 1] == ref[:j + 1],
+              f"{label}: the eager replay through {path} does not "
+              f"reproduce the served stream through token {j}")
+    L = replays.model.config.num_layers
+    keys = [(p, l) for p in range(len(prompt) + j) for l in range(L)]
+    missing = [key for key in keys if key not in ra or key not in rb]
+    check(not missing, f"{label}: the replays routed no row at "
+                       f"(position, layer) {missing[:4]}")
+    flips = [key for key in keys if ra[key][0] != rb[key][0]]
+    roots = [(p, l) for p, l in flips
+             if not any(q <= p and m < l for q, m in flips)]
+    if not roots:
+        lgap = tie_gap(replays.model, prompt, [64, 128], want[:j])
+        say(f"{label}: diverges at token {j}: {got[j]} vs {want[j]} with "
+            f"no routing flip in the context, top-2 logit gap {lgap:.3e}")
+        check(lgap < BF16_TIE, f"{label}: diverged with no routing flip "
+                               f"where the top-2 gap is {lgap} (>= "
+                               f"{BF16_TIE})")
+        return "logit"
+    gaps = [max(ra[key][1], rb[key][1]) for key in roots]
+    noise = max((float(np.abs(ra[q, m][2] - rb[q, m][2]).max())
+                 for q, m in keys
+                 if not any(f <= q and n <= m for f, n in flips)),
+                default=0.0)
+    p, l = roots[0]
+    say(f"{label}: diverges at token {j}: {got[j]} vs {want[j]}; "
+        f"{len(flips)} routing flips in the context, {len(roots)} roots, "
+        f"the first at position {p} layer {l} (experts {ra[p, l][0]} vs "
+        f"{rb[p, l][0]}), largest root gate-logit gap {max(gaps):.3e}; "
+        f"gate logits of the rows no flip reaches differ by up to "
+        f"{noise:.3e}")
+    check(max(gaps) < BF16_TIE,
+          f"{label}: a root routing flip at gate-logit gap {max(gaps)} (>= "
+          f"{BF16_TIE}): the two paths disagree beyond rounding")
+    return "flip"
 
 
 def ernie_train_losses(model, batches, dev):
@@ -3477,6 +3631,7 @@ def phase19_card_vs_cpu():
     cfg = cpu_model.config
     state = {n: p.detach().numpy().copy()
              for n, p in cpu_model.named_parameters()}
+    p0 = {n: torch.from_numpy(v) for n, v in state.items()}
     gpu_model = params_from_numpy(state, cfg, device="cuda")
     rng = np.random.RandomState(1)
     batches = [(rng.randint(0, cfg.vocab_size, (2, 256)),
@@ -3491,18 +3646,30 @@ def phase19_card_vs_cpu():
     cpu_params = dict(cpu_model.named_parameters())
     perr = max((p.detach().cpu() - cpu_params[n].detach()).abs().max().item()
                for n, p in gpu_model.named_parameters())
+    # the update itself: (p_card - p0) against (p_cpu - p0), per tensor
+    # relative to the CPU change's largest element (all of them moved)
+    moved = {n: cpu_params[n].detach() - p0[n] for n in p0}
+    check(all(d.abs().max().item() > 0 for d in moved.values()),
+          "phase19: a parameter did not move on the CPU")
+    derr = max(((p.detach().cpu() - p0[n]) - moved[n]).abs().max().item()
+               / moved[n].abs().max().item()
+               for n, p in gpu_model.named_parameters())
     say(f"phase19 card vs CPU ERNIE-MoE train (hidden 768, 8 experts, "
         f"top-2, 2 layers, fp32, B 2, L 256, 5 steps of AdamW under "
         f"LinearWarmup(CosineAnnealingDecay) with ClipGradByGlobalNorm(1.0)):"
         f" losses cuda {[round(x, 6) for x in gl]} cpu "
         f"{[round(x, 6) for x in cl]}, max rel diff {rel:.3e} (tol "
         f"{ERNIE_LOSS_TOL}), final params max abs diff {perr:.3e} (tol "
-        f"{ERNIE_PARAM_TOL}); routing flips {flips0} before training "
+        f"{ERNIE_PARAM_TOL}), the update's max diff {derr:.3e} of its "
+        f"largest element (tol {ERNIE_DELTA_TOL}); routing flips {flips0} "
+        f"before training "
         f"(smallest k-th/next gate gap {gap0:.3e}) and {flips1} after "
         f"(gap {gap1:.3e}) of {2 * 256 * cfg.num_layers} token-layers each")
     check(all(np.isfinite(gl)), "phase19: non-finite card loss")
     check(rel <= ERNIE_LOSS_TOL, f"phase19: losses differ by {rel}")
     check(perr <= ERNIE_PARAM_TOL, f"phase19: parameters differ by {perr}")
+    check(derr <= ERNIE_DELTA_TOL, f"phase19: the updates differ by {derr} "
+                                   f"of their largest element")
     for flips, gap in ((flips0, gap0), (flips1, gap1)):
         check(flips == 0 or gap < ROUTE_TIE,
               f"phase19: {flips} routing flips with the smallest gate gap "
@@ -3591,12 +3758,11 @@ def phase19_ragged(model, reqs, card):
         f"{pool_bytes / 2**20:.1f} MiB (reserved memory grew "
         f"{grown / 2**20:.1f} MiB over the warmup), B1 launches {b1} = "
         f"{Lyr} x {eng.ragged_steps}")
-    ties = 0
-    for i in range(4):
-        want = model.generate([reqs[i][0]], reqs[i][1])[0].tolist()
-        ties += not same_or_route_tie(f"phase19 request {i} vs "
-                                      f"generate()", streams[i], want,
-                                      reqs[i][0], [64, 128], model)
+    replays = ErnieReplays(model, reqs)
+    kinds = [same_or_route_flip(
+        f"phase19 request {i} vs generate()", streams[i],
+        model.generate([reqs[i][0]], reqs[i][1])[0].tolist(), i,
+        ("ragged", "generate"), replays) for i in range(4)]
     draft = GPTModel(GPTConfig(vocab_size=c.vocab_size, hidden_size=768,
                                num_layers=1, num_attention_heads=12,
                                max_position_embeddings=512,
@@ -3620,9 +3786,8 @@ def phase19_ragged(model, reqs, card):
           f"phase19 spec: B5 launches {sb5} != K 2 x 1 x "
           f"{seng.ragged_steps}")
     sstreams = [sgot[r] for r in sorted(sgot)]
-    sties = sum(not same_or_route_tie(f"phase19 spec request {i}",
-                                      sstreams[i], streams[i], reqs[i][0],
-                                      [64, 128], model)
+    sties = sum(not same_or_tie(f"phase19 spec request {i}", sstreams[i],
+                                streams[i], reqs[i][0], [64, 128], model)
                 for i in range(len(reqs)))
     stokens = sum(len(v) for v in sgot.values())
     say(f"phase19 the same serve with a 1-layer GPT draft at K 2: "
@@ -3631,12 +3796,14 @@ def phase19_ragged(model, reqs, card):
         f"{1e3 * swall / seng.ragged_steps:.3f} ms/step, graph pool "
         f"{spool / 2**20:.1f} MiB, B1 {sb1} = 7 x {seng.ragged_steps}, B5 "
         f"{sb5} = 2 x {seng.ragged_steps}; streams equal to the plain "
-        f"arm's but {sties} near-ties of 24; 4 requests vs generate(): "
-        f"{ties} near-ties")
-    return streams, b1 + sb1, sb5
+        f"arm's but {sties} logit near-ties of 24; 4 requests vs "
+        f"generate(): {kinds.count('equal')} equal, {kinds.count('flip')} "
+        f"diverging at a found routing flip, {kinds.count('logit')} at a "
+        f"logit near-tie")
+    return streams, b1 + sb1, sb5, replays
 
 
-def phase19_bucketed(model, reqs, streams, card):
+def phase19_bucketed(model, reqs, streams, replays, card):
     """(4) the first 12 requests through the bucketed paged engine
     (8 slots, max_len 512, block 16, buckets [64, 128], ticks_per_sync
     8): B5 6 launches a tick, B2 6 an admission at bucket 128, streams
@@ -3670,18 +3837,20 @@ def phase19_bucketed(model, reqs, streams, card):
     n128 = sum(len(p) > 64 for p, _ in sub)
     check(b2 == Lyr * n128, f"phase19 bucketed: flash_fwd launches {b2} "
                             f"!= {Lyr} x {n128} admissions at bucket 128")
-    ties = sum(not same_or_route_tie(f"phase19 bucketed request {i}",
-                                     got[r], streams[i], sub[i][0],
-                                     [64, 128], model)
-               for i, r in enumerate(sorted(got)))
+    kinds = [same_or_route_flip(f"phase19 bucketed request {i}", got[r],
+                                streams[i], i, ("bucketed", "ragged"),
+                                replays)
+             for i, r in enumerate(sorted(got))]
     tokens = sum(n for _, n in sub)
     say(f"phase19 ERNIE-MoE bucketed paged serve (the first 12 requests, "
         f"{tokens} tokens, ticks_per_sync {k}) on {card}: "
         f"{eng.decode_syncs} syncs = {ticks} ticks, {tokens / wall:.1f} "
         f"tokens/s, {1e3 * wall / eng.decode_syncs:.3f} ms/sync, B5 "
         f"launches {b5} = {Lyr} x {ticks}, flash_fwd {b2} = {Lyr} x "
-        f"{n128} (the admissions at bucket 128); "
-        f"streams equal to the ragged arm's but {ties} near-ties")
+        f"{n128} (the admissions at bucket 128); streams against the "
+        f"ragged arm's: {kinds.count('equal')} equal, "
+        f"{kinds.count('flip')} diverging at a found routing flip, "
+        f"{kinds.count('logit')} at a logit near-tie")
     return b5, b2
 
 
@@ -3725,8 +3894,9 @@ def phase19_gather_cost(model, card):
                 f"experts, top-2) on {card}: every-expert form {t_ours:.4f} "
                 f"ms, literal gather {t_lit:.4f} ms, max abs diff "
                 f"{err:.3e} of max {scale:.3e}")
-            check(err <= 2e-2 * max(scale, 1.0),
-                  f"phase19: the two forms differ by {err} at T {T}")
+            check(err <= 4 * 2.0 ** -8 * scale,
+                  f"phase19: the two forms differ by {err} at T {T} (> 4 "
+                  f"bf16 ulps of {scale})")
 
 
 def phase19_optimizers(card):
@@ -3806,8 +3976,9 @@ def phase19(card):
     torch.cuda.empty_cache()
     model = ernie_model("cuda")
     reqs = serving_traffic(model.config.vocab_size)
-    streams, b1, b5_spec = phase19_ragged(model, reqs, card)
-    b5, b2 = phase19_bucketed(model, reqs, streams, card)
+    streams, b1, b5_spec, replays = phase19_ragged(model, reqs, card)
+    b5, b2 = phase19_bucketed(model, reqs, streams, replays, card)
+    del replays
     phase19_gather_cost(model, card)
     del model
     gc.collect()

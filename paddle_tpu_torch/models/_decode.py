@@ -1168,6 +1168,7 @@ def save_generate_program(model, path: str, prompt_len: int,
             "masked": masked, "platforms": tuple(platforms)}
     with open(path + ".genmodel", "wb") as f:
         pickle.dump({"format": _GENMODEL_FORMAT,
+                     "module": type(model).__module__,
                      "model": type(model).__name__,
                      "config": dict(vars(model.config)),
                      "signature": dict(meta)}, f)
@@ -1186,30 +1187,33 @@ def load_generate_program(path: str, device=None):
     (on a card, captured) at the first call and replayed after.
     ``prompt_mask`` is required when the artifact was exported with
     ``masked=True`` and refused otherwise."""
+    import importlib
     import pickle
 
     from .. import resolve_device
-    from . import ernie_moe, gpt
 
-    families = {"GPTModel": (gpt.GPTConfig, gpt.params_from_numpy),
-                "ErnieMoeModel": (ernie_moe.ErnieMoeConfig,
-                                  ernie_moe.params_from_numpy)}
     with open(path + ".genmodel", "rb") as f:
         spec = pickle.load(f)
     with open(path + ".genparams", "rb") as f:
         params = pickle.load(f)
     with open(path + ".genmeta", "rb") as f:
         meta = pickle.load(f)
-    if spec.get("format") != _GENMODEL_FORMAT or \
-            spec.get("model") not in families:
+    module, name = str(spec.get("module")), str(spec.get("model"))
+    cls = None
+    if spec.get("format") == _GENMODEL_FORMAT and \
+            module.startswith("paddle_tpu_torch."):
+        cls = getattr(importlib.import_module(module), name, None)
+    if not (isinstance(cls, type) and issubclass(cls, CausalDecoderMixin)
+            and getattr(cls, "config_class", None) is not None):
         raise ValueError(f"{path}.genmodel is not a {_GENMODEL_FORMAT} "
-                         f"artifact of one of {sorted(families)}")
+                         f"artifact of a causal LM of the port "
+                         f"({module}.{name})")
     dev = resolve_device(device)
     if dev.type not in meta["platforms"]:
         raise ValueError(f"artifact exported for {meta['platforms']}, not "
                          f"{dev.type}")
-    config_cls, build = families[spec["model"]]
-    model = build(params, config_cls(**spec["config"]), device=dev)
+    model = cls.from_numpy(params, cls.config_class(**spec["config"]),
+                           device=dev)
     shape = (meta["batch_size"], meta["prompt_len"])
 
     def fn(input_ids, seed=0, prompt_mask=None):

@@ -8,9 +8,11 @@ numpy state dict moves between the two packages with no mapping
 (``params_from_numpy``).  Training routes with the configured capacity
 through the index dispatch and adds ``aux_loss_weight`` times the
 load-balance loss summed over layers.  Generation and serving route with
-no drop: ``prefill`` through the index dispatch at the capacity factor
-E/k (so C >= T), the decode paths (``decode_step``, ``decode_ragged``)
-through ``moe_ffn_gather``, as the reference does.  The attention half,
+no drop: ``prefill`` and the decode paths (``decode_step``,
+``decode_ragged``) through ``moe_ffn_gather``.  The reference's prefill
+takes the index dispatch at the capacity factor E/k; with no drop the two
+compute the same numbers, and at C >= T the index form runs the same E·T
+expert rows as the gather's every-expert form.  The attention half,
 the KV-cache loops and the weight casts are ``gpt.StackedDecoder``'s, so
 the model serves through the four engines and ``generate()`` by the same
 contract as ``GPTModel``.
@@ -28,8 +30,7 @@ from .. import resolve_device
 from ..ops.attention import flash_attention
 from ..ops.loss import softmax_cross_entropy_mean
 from ..ops.moe import moe_ffn, moe_ffn_gather, moe_ffn_indices
-from .gpt import (_COMPUTE_DTYPES, StackedDecoder, _mesh_degrees,
-                  load_numpy_state)
+from .gpt import _COMPUTE_DTYPES, StackedDecoder, _mesh_degrees
 
 
 class ErnieMoeConfig:
@@ -71,6 +72,8 @@ class ErnieMoeModel(StackedDecoder):
     ``device`` defaults to ``cuda``; ``generator`` (a ``torch.Generator``
     on that device, default seeded 0) draws the N(0, initializer_range)
     weights, with proj and expert_w2 at ``initializer_range / sqrt(2L)``."""
+
+    config_class = ErnieMoeConfig
 
     def __init__(self, config: ErnieMoeConfig, *, device=None,
                  generator=None):
@@ -114,29 +117,23 @@ class ErnieMoeModel(StackedDecoder):
                 *(self._cw(f"blocks_expert_{n}", l)
                   for n in ("w1", "b1", "w2", "b2")))
 
-    def _moe_residual(self, l, h, mesh=None, capacity_factor=None):
-        """ln2 + the routed FFN + residual; returns (h, aux).
-        ``capacity_factor`` None takes the training config's, a float
-        overrides it (prefill passes the no-drop E/k)."""
+    def _moe_residual(self, l, h, mesh=None):
+        """Training's ln2 + routed FFN at the configured capacity +
+        residual; returns (h, aux)."""
         c = self.config
         B, Lq, H = h.shape
         m_in = self._block_ln(h, self.blocks_ln2_w[l], self.blocks_ln2_b[l],
                               h.dtype)
         ffn = moe_ffn_indices if c.index_dispatch else moe_ffn
         out, aux = ffn(m_in.reshape(B * Lq, H), *self._experts(l), k=c.top_k,
-                       capacity_factor=(c.capacity_factor
-                                        if capacity_factor is None
-                                        else capacity_factor),
-                       mesh=mesh, expert_axis=c.expert_axis)
+                       capacity_factor=c.capacity_factor, mesh=mesh,
+                       expert_axis=c.expert_axis)
         return h + out.reshape(B, Lq, H), aux
 
-    def _nodrop_cf(self) -> float:
-        c = self.config
-        return float(c.num_experts) / float(c.top_k)
-
     def _block_post_attn(self, l, h, att):
-        """The decode paths' second half: projection + residual, then ln2,
-        the capacity-free gather FFN and its residual."""
+        """The serving paths' second half (prefill and decode):
+        projection + residual, then ln2, the capacity-free gather FFN and
+        its residual."""
         h = self._attn_residual(l, h, att)
         B, Lq, H = h.shape
         m_in = self._block_ln(h, self.blocks_ln2_w[l], self.blocks_ln2_b[l],
@@ -144,10 +141,6 @@ class ErnieMoeModel(StackedDecoder):
         out = moe_ffn_gather(m_in.reshape(B * Lq, H), *self._experts(l),
                              k=self.config.top_k)
         return h + out.reshape(B, Lq, H)
-
-    def _prefill_post_attn(self, l, h, att):
-        return self._moe_residual(l, self._attn_residual(l, h, att),
-                                  capacity_factor=self._nodrop_cf())[0]
 
     # --------------------------------------------------------- training --
     # As GPTModel's, these read the module's own parameters (or the
@@ -251,6 +244,4 @@ def params_from_numpy(np_state, config: ErnieMoeConfig,
     """Build the port's ERNIE-MoE from a numpy state dict keyed by the
     reference's parameter names (``{n: np.asarray(p._data) for n, p in
     model.named_parameters()}`` of a ``paddle_tpu`` ERNIE-MoE)."""
-    dev = resolve_device(device)
-    return load_numpy_state(ErnieMoeModel(config, device="meta").to_empty(
-        device=dev), np_state)
+    return ErnieMoeModel.from_numpy(np_state, config, device)

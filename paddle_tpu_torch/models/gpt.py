@@ -121,7 +121,17 @@ class StackedDecoder(CausalDecoderMixin, nn.Module):
     ``config.compute_dtype`` (``_cw``), and the KV-cache paths (the ragged
     pack, ``prefill``, ``decode_step``) as a loop over layers.  A subclass
     defines the block's second half, ``_block_post_attn(l, h, att)``, and
-    may give ``prefill`` its own (``_prefill_post_attn``)."""
+    names its config's class (``config_class``)."""
+
+    config_class = None
+
+    @classmethod
+    def from_numpy(cls, np_state, config, device=None):
+        """The model built from a numpy state dict keyed by the reference's
+        parameter names (``load_numpy_state``), on ``device``."""
+        dev = resolve_device(device)
+        return load_numpy_state(cls(config, device="meta").to_empty(
+            device=dev), np_state)
 
     @staticmethod
     def _initializers(dev, std, generator):
@@ -201,9 +211,6 @@ class StackedDecoder(CausalDecoderMixin, nn.Module):
     def _block_post_attn(self, l, h, att):
         raise NotImplementedError
 
-    def _prefill_post_attn(self, l, h, att):
-        return self._block_post_attn(l, h, att)
-
     def _block_decode_ragged(self, l, h, pck, pcv, table, row_seq, row_pos,
                              pad_lens, plan):
         """Layer ``l`` for a flattened ragged pack: h (1, T, H); pck/pcv
@@ -272,7 +279,7 @@ class StackedDecoder(CausalDecoderMixin, nn.Module):
         for l in range(c.num_layers):
             q, k, v = self._block_qkv(l, h)
             att = flash_attention(q, k, v, causal=True, key_mask=key_mask)
-            h = self._prefill_post_attn(l, h, att)
+            h = self._block_post_attn(l, h, att)
             write_cache(_layer(ck, l), k, 0)
             write_cache(_layer(cv, l), v, 0)
         return h, (ck, cv)
@@ -300,6 +307,8 @@ class GPTModel(StackedDecoder):
     ``device`` defaults to ``cuda``; ``generator`` (a ``torch.Generator``
     on that device, default seeded 0) draws the N(0, initializer_range)
     weights, with proj/fc2 at ``initializer_range / sqrt(2L)``."""
+
+    config_class = GPTConfig
 
     def __init__(self, config: GPTConfig, *, device=None, generator=None):
         super().__init__()
@@ -503,9 +512,7 @@ def params_from_numpy(np_state, config: GPTConfig, device=None) -> GPTModel:
     """Build the port's model from a numpy state dict keyed by the
     reference's parameter names (``{n: np.asarray(p._data) for n, p in
     model.named_parameters()}`` of a ``paddle_tpu`` GPT)."""
-    dev = resolve_device(device)
-    return load_numpy_state(GPTModel(config, device="meta").to_empty(
-        device=dev), np_state)
+    return GPTModel.from_numpy(np_state, config, device)
 
 
 def load_numpy_state(model: nn.Module, np_state) -> nn.Module:

@@ -216,8 +216,9 @@ def _hcg():
 
 class TestDecode:
     def test_prefill_and_decode_step(self):
-        """A left-padded prompt through ``prefill`` (no-drop index
-        dispatch), then 3 ``decode_step``s (gather dispatch)."""
+        """A left-padded prompt through ``prefill`` (the port's gather
+        dispatch against the reference's no-drop index dispatch), then 3
+        ``decode_step``s (gather dispatch)."""
         jm, params, tm, *_ = _models()
         ids = np.asarray([[0, 0, 5, 17, 3, 9], [40, 2, 8, 8, 1, 60]])
         pads = np.asarray([2, 0], np.int32)
@@ -362,9 +363,11 @@ class TestRepairs:
         with open(path + ".genmodel", "rb") as f:
             import pickle
             spec = pickle.load(f)
-        assert spec["model"] == "ErnieMoeModel"
-        spec["model"] = "BertModel"
+        assert (spec["module"], spec["model"]) == (
+            "paddle_tpu_torch.models.ernie_moe", "ErnieMoeModel")
+        spec["module"], spec["model"] = "paddle_tpu_torch.models.bert", \
+            "BertModel"
         with open(path + ".genmodel", "wb") as f:
             pickle.dump(spec, f)
-        with pytest.raises(ValueError, match="ErnieMoeModel"):
+        with pytest.raises(ValueError, match="models.bert.BertModel"):
             load_generate_program(path, device="cpu")
