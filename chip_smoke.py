@@ -280,6 +280,27 @@ Phases (any failure exits non-zero before the result lines):
    a TTFT p99 within the sketch's 2% of the gateway's own; (e)
    ``bench_gpt_autoscale``'s and ``bench_gpt_chaos``'s simulated A/Bs on
    the port's modules with their contracts.
+21. data parallelism at gpt2-small width (vocab 50304, hidden 768, 12
+   heads, bf16, weights from seed 0): (a) ``bench_gpt_grad_comm``'s
+   accelerator cell over NCCL at world size 1 (``init_parallel_env()``,
+   ``fleet.init``, ``make_sharded_gpt_train_step``, 12 layers, B 16, L
+   1024), fp32, bf16 and int8_ef, each 2 warm-up and 10 timed steps: the
+   wire savings equal ``wire_bytes``' formula, every loss finite, the
+   int8_ef curve within 0.02 of fp32's; then one spawn of two ranks that
+   share the card over gloo (NCCL refuses two ranks on one device; gloo
+   copies through pinned host memory where it takes no CUDA tensor):
+   (b) ``bench_gpt_weight_update_sharding`` at R 2 (12 layers, B 16 as 8 a
+   rank, L 1024), the replicated and the update-sharded arm, 1 warm-up and
+   3 timed steps each: opt-state bytes a replica cut >= 1.8x by
+   ``per_device_state_bytes`` and by a ``MemoryLedger`` census, final
+   losses within rtol 1e-4, atol 1e-6; (c) ZeRO stages 1, 2, 3 and offload
+   at 2 layers, B 8, L 1024, each 3-step curve within 1e-2 relative of one
+   rank's on the whole batch, the offload state on pinned host memory, an
+   inf in rank 0's rows skipping the step on both ranks (loss scale halved,
+   step counter kept), and BERT-base at 2 layers with the fused LN over dp
+   2 against one rank; (d) ``TrainMonitor.aggregate()`` over (b)'s sharded
+   arm (world 2, the summed steps and tokens, straggler skew >= 1.0) and
+   ``RunLedger.aggregate()`` agreeing with it.
 
 Then each kernel is timed at its main path's shapes beside its plain
 version, one PyTorch call computing the same function (``library_ms``,
@@ -303,8 +324,10 @@ proposals, ``flash_fwd`` in the bucketed admissions, the three flash
 kernels in the 10 timed ERNIE-MoE train steps) and phase 20's (the
 ragged kernel in the gateway's two timed arms, the disaggregated serves
 and the faulted fleet, ``flash_fwd`` and the paged decode kernel in the
-faulted fleet's bucketed replica).  The last two lines are the kernels
-JSON and the device JSON.
+faulted fleet's bucketed replica) and phase 21's (the three flash
+kernels in (a)'s 36 steps and, on both ranks, in (c)'s GPT and BERT
+arms; the fused LN kernels in (c)'s BERT arm).  The last two lines are the
+kernels JSON and the device JSON.
 
 Without CUDA, or run without the rest of the repository, it exits
 non-zero and prints no result.
@@ -4534,6 +4557,544 @@ def phase20(card):
     return b1_gw + b1_disagg + chaos[0], chaos[1], chaos[2]
 
 
+# ------------------------------------------------------------ phase 21 --
+
+DP_WIDTH = dict(vocab_size=50304, max_position_embeddings=1024,
+                compute_dtype="bfloat16")
+GRAD_COMM_TOL = 0.02     # int8_ef against fp32 curves (test_grad_comm.py)
+BF16_RTOL = 1e-3         # a bf16 loss on R row blocks against one rank's
+# the fp32 weights' move over 3 AdamW steps against one rank's, as the norm
+# of the difference over the norm of the move: bf16 roundings of a 4-row
+# against an 8-row gradient flip the sign of Adam's step only where the
+# gradient is near zero, while a rank that trained on its own rows alone
+# moves most weights otherwise (21c measures that step beside the limit)
+DELTA_TOL = 0.25
+
+
+def flash_counts():
+    """(flash_fwd, dq, dkv, ln_fwd, ln_bwd) launch counts, read together."""
+    from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.ops import fused as TF
+
+    return [A.flash_fwd_cuda.launches, A.flash_bwd_dq_cuda.launches,
+            A.flash_bwd_dkv_cuda.launches, TF.fused_ln_fwd_cuda.launches,
+            TF.fused_ln_bwd_cuda.launches]
+
+
+def zero_counts():
+    from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.ops import fused as TF
+
+    for k in (A.flash_fwd_cuda, A.flash_bwd_dq_cuda, A.flash_bwd_dkv_cuda,
+              TF.fused_ln_fwd_cuda, TF.fused_ln_bwd_cuda):
+        k.launches = 0
+
+
+def fleet_hcg(**degrees):
+    """``bench.py``'s ``_fleet_hcg`` on the port."""
+    from paddle_tpu_torch.distributed import fleet
+
+    strategy = fleet.DistributedStrategy()
+    cfg = {"dp_degree": 1, "mp_degree": 1, "pp_degree": 1}
+    cfg.update(degrees)
+    strategy.hybrid_configs = cfg
+    fleet.init(is_collective=True, strategy=strategy)
+    return fleet.get_hybrid_communicate_group()
+
+
+def phase21a(card):
+    """``bench_gpt_grad_comm``'s accelerator cell over NCCL at world size
+    1: the sharded-init gpt2s step (12 layers, B 16, L 1024) under each
+    policy, 2 warm-up and 10 timed steps.  Returns the flash launches."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed.grad_comm import wire_bytes
+    from paddle_tpu_torch.models.gpt import (gpt_preset,
+                                             make_sharded_gpt_train_step)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    dist.init_parallel_env()                 # nccl on this card, world 1
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"phase21a: backend {dist.get_backend()} world "
+          f"{dist.get_world_size()}")
+    cfg = gpt_preset("gpt2-small", **DP_WIDTH)
+    B, L, iters = 16, 1024, 10
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, L))).cuda()
+    y = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, L))).cuda()
+    zero_counts()
+    rows, curves = {}, {}
+    for pol in ("fp32", "bf16", "int8_ef"):
+        step, state = make_sharded_gpt_train_step(
+            cfg, AdamW(3e-4, weight_decay=0.01), fleet_hcg(), remat=False,
+            grad_comm=pol)
+        wb = wire_bytes(state["params"], pol)
+        losses = []
+        for i in range(2):
+            state, loss = step(state, 3e-4, i, x, y)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(iters):
+            state, loss = step(state, 3e-4, i, x, y)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        curves[pol] = [v.item() for v in losses]
+        rows[pol] = dict(ms=1e3 * dt / iters, tps=B * L * iters / dt,
+                         pre=wb["pre_bytes"], post=wb["post_bytes"],
+                         comm_e="comm_e" in state)
+        del step, state, loss, losses
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = flash_counts()[:3]
+    for pol, r in rows.items():
+        say(f"phase21a bench_gpt_grad_comm cell (gpt2s 12 layers, B {B}, "
+            f"L {L}, bf16, sharded init under fleet, NCCL world 1) on {card}:"
+            f" {pol} {r['ms']:.3f} ms/step, {r['tps']:.1f} tokens/s, loss "
+            f"{curves[pol][-1]:.4f}, wire_bytes {r['post']} of fp32's "
+            f"{r['pre']} (saving {r['pre'] / r['post']:.3f}x)")
+    n = rows["fp32"]["pre"] // 8
+    want = 8 * n / (2 * (n + 4 * -(-n // 256)))
+    got = rows["int8_ef"]["pre"] / rows["int8_ef"]["post"]
+    check(got == want and got > 3.9,
+          f"phase21a: int8_ef saving {got} != the formula's {want}")
+    check(rows["bf16"]["pre"] / rows["bf16"]["post"] == 2.0,
+          "phase21a: bf16 saving is not 2x")
+    check(rows["int8_ef"]["comm_e"] and not rows["fp32"]["comm_e"],
+          "phase21a: comm_e only under int8_ef")
+    check(all(np.isfinite(c).all() for c in curves.values()),
+          f"phase21a: non-finite losses {curves}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(curves["int8_ef"],
+                                                 curves["fp32"]))
+    check(rel <= GRAD_COMM_TOL,
+          f"phase21a: int8_ef curve {rel} from fp32's (tol {GRAD_COMM_TOL})")
+    say(f"phase21a losses over 12 steps: fp32 "
+        f"{[round(v, 4) for v in curves['fp32']]}; int8_ef within "
+        f"{rel:.3e} relative of it (tol {GRAD_COMM_TOL}); bf16 within "
+        f"{max(abs(a - b) / abs(b) for a, b in zip(curves['bf16'], curves['fp32'])):.3e}; "
+        f"int8_ef/fp32 step time {rows['int8_ef']['ms'] / rows['fp32']['ms']:.3f} "
+        f"(the policy's compute on this card: local mode, no int8 on a wire); "
+        f"flash launches fwd/dq/dkv {launches} = 12 x 12 x 3")
+    check(launches == [12 * 12 * 3] * 3,
+          f"phase21a: flash launches {launches}")
+    dist.destroy_process_group()
+    return launches, rows
+
+
+def gpt_loss(model):
+    def loss_of(params, key, x, labels):
+        h = model.scan_blocks(model.embed_fn(x, key), key, remat=False)
+        return model.head_loss_fn(h, labels)
+    return loss_of
+
+
+def rank21b(rank, card):
+    """``bench_gpt_weight_update_sharding`` at R 2: the replicated and the
+    update-sharded arm, 1 warm-up and 3 timed steps each, under a
+    ``TrainMonitor`` + ``RunLedger`` (21d) and a ``MemoryLedger``."""
+    from paddle_tpu_torch.distributed.grad_comm import wire_bytes
+    from paddle_tpu_torch.distributed.zero import per_device_state_bytes
+    from paddle_tpu_torch.models.gpt import (GPTModel, gpt_preset,
+                                             make_gpt_train_step)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.telemetry import TrainMonitor
+    from paddle_tpu_torch.telemetry_ledger import RunLedger
+    from paddle_tpu_torch.telemetry_memory import MemoryLedger
+
+    cfg = gpt_preset("gpt2-small", **DP_WIDTH)
+    B, L, iters = 16, 1024, 3
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, L))).cuda()
+    y = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, L))).cuda()
+    out = {}
+    for arm in ("replicated", "sharded"):
+        model = GPTModel(cfg, device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(0))
+        mon, led, mem = TrainMonitor(), RunLedger(), MemoryLedger()
+        mon.set_ledger(led)
+        with mem:
+            step, state = make_gpt_train_step(
+                model, AdamW(3e-4, weight_decay=0.01), fleet_hcg(dp_degree=2),
+                remat=False, monitor=mon, update_sharding=arm == "sharded")
+            opt_bytes = per_device_state_bytes(state)
+            state, loss = step(state, 0, 3e-4, x, y)
+            loss.item()
+            t0 = time.perf_counter()
+            for i in range(iters):
+                state, loss = step(state, i + 1, 3e-4, x, y)
+            final = loss.item()
+            dt = time.perf_counter() - t0
+            mem.register_train_state(state, name="final_state")
+            walk = mem.census()
+        led.close()
+        out[arm] = dict(opt_bytes=opt_bytes,
+                        measured=int(walk["pools"]["optimizer_state"]),
+                        ms=1e3 * dt / iters, loss=final,
+                        wire=wire_bytes(state["params"], "fp32")["post_bytes"])
+        if arm == "sharded":
+            out["monitor"] = mon.aggregate()
+            out["ledger"] = led.aggregate()
+            out["local_tokens"] = sum(e["tokens"]
+                                      for e in mon.events("train_step"))
+        del model, step, state, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def weights(state):
+    """The fp32 weights a ZeRO state updates: its parameters, or their
+    fp32 masters where it keeps them."""
+    return {**state["params"], **state.get("master", {})}
+
+
+def delta_errors(got, p0, solo, cut):
+    """How far this rank's weights ``got`` moved from the one-rank step's
+    move, on the same blocks: (norm of the difference over the norm of
+    the one-rank move, largest difference over the one-rank move's
+    largest element).  ``cut(name, full)`` is the rank's block."""
+    d2 = e2 = dmax = emax = 0.0
+    for n, m in got.items():
+        want = cut(n, solo[n] - p0[n])
+        err = m.detach().to(want.device, torch.float32) - cut(n, p0[n]) \
+            - want
+        d2 += float(want.square().sum())
+        e2 += float(err.square().sum())
+        dmax = max(dmax, float(want.abs().max()))
+        emax = max(emax, float(err.abs().max()))
+    return (e2 / d2) ** 0.5, emax / dmax
+
+
+def rank21c(rank):
+    """ZeRO at R 2 (gpt2s width, 2 layers, B 8, L 1024): stages 1-3 and
+    offload against the one-rank step on the whole batch (losses, and the
+    move of the fp32 weights on this rank's blocks) and against a
+    one-rank step on this rank's rows alone (what a step that left out
+    the gradient reduction would make), each stage's state by
+    ``MemoryLedger`` census, a found_inf step, and BERT-base DP (2
+    layers, fused LN on)."""
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.distributed.sharding_rules import (local_shard,
+                                                             spec_shards)
+    from paddle_tpu_torch.distributed.zero import (make_zero_train_step,
+                                                   per_device_state_bytes,
+                                                   zero_state_specs)
+    from paddle_tpu_torch.models.bert import (BertModel, bert_preset,
+                                              make_bert_train_step)
+    from paddle_tpu_torch.models.gpt import (GPTModel, gpt_preset,
+                                             make_gpt_train_step)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.telemetry_memory import MemoryLedger
+
+    cfg = gpt_preset("gpt2-small", num_layers=2, **DP_WIDTH)
+    B, L = 8, 1024
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, L))).cuda()
+    y = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, L))).cuda()
+    own = slice(rank * B // 2, (rank + 1) * B // 2)
+
+    def model():
+        return GPTModel(cfg, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
+
+    def curve(step, state, a=x, b=y, n=3):
+        losses, t0 = [], None
+        for i in range(n):
+            if i == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            state, loss = step(state, i, 3e-4, a, b)
+            losses.append(loss.item())
+        return losses, 1e3 * (time.perf_counter() - t0) / (n - 1), state
+
+    def one_rank(a=x, b=y):
+        """The one-rank step: (its curve, its weights after it)."""
+        c, _, st = curve(*make_gpt_train_step(
+            model(), AdamW(3e-4, weight_decay=0.01), None, remat=False),
+            a=a, b=b)
+        return c, {n: t.detach().clone() for n, t in st["params"].items()}
+
+    p0 = {n: p.detach().float() for n, p in model().named_parameters()}
+    out = {"curves": {}, "ms": {}, "bytes": {}, "census": {}, "delta": {}}
+    solo, solo_m = one_rank()
+    out["curves"]["one rank"] = solo
+    _, fault_m = one_rank(x[own], y[own])
+    out["delta"]["own rows only"] = delta_errors(fault_m, p0, solo_m,
+                                                 lambda n, t: t)
+    del fault_m
+    hcg = fleet_hcg(sharding_degree=2)
+    zero_counts()
+    for stage in (1, 2, 3):
+        m = model()
+        step, state = make_gpt_train_step(
+            m, AdamW(3e-4, weight_decay=0.01), hcg, remat=False,
+            zero_stage=stage)
+        key = f"stage {stage}"
+        out["bytes"][key] = per_device_state_bytes(state)
+        mem = MemoryLedger()
+        mem.register_tree("optimizer_state", {"slots": state["opt"]["slots"],
+                                              "master": state["master"]},
+                          name="zero")
+        out["census"][key] = int(mem.census()["pools"]["optimizer_state"])
+        p_specs, s_specs = zero_state_specs(dict(m.named_parameters()),
+                                            hcg.mesh, m, stage)
+        specs = {**p_specs, **{n: s_specs[n] for n in state["master"]}}
+        c, ms, state = curve(step, state)
+        out["curves"][key], out["ms"][key] = c, ms
+        out["delta"][key] = delta_errors(
+            weights(state), p0, solo_m,
+            lambda n, t: (local_shard(t, specs[n], hcg.mesh)
+                          if spec_shards(specs[n], hcg.mesh) else t))
+        del step, state, m, mem
+    m = model()
+    step, state = make_zero_train_step(gpt_loss(m), dict(m.named_parameters()),
+                                       AdamW(3e-4, weight_decay=0.01),
+                                       hcg.mesh, layer=m, offload=True)
+    slots = [v for s in state["opt"]["slots"].values() for v in s.values()]
+    out["offload_host"] = all(v.device.type == "cpu" and v.is_pinned()
+                              for v in slots + list(state["master"].values()))
+    out["bytes"]["offload"] = per_device_state_bytes(state)
+    c, ms, state = curve(lambda st, k, lr, a, b: step(st, lr, k, a, b), state)
+    out["curves"]["offload"], out["ms"]["offload"] = c, ms
+    out["offload_host_after"] = all(v.is_pinned() for s in state["opt"][
+        "slots"].values() for v in s.values())
+    out["delta"]["offload"] = delta_errors(weights(state), p0, solo_m,
+                                           lambda n, t: t)
+    del step, state, m, solo_m, p0
+    out["gpt_launches"] = flash_counts()
+
+    # found_inf: an inf reaches one element of blocks_fc1_w's gradient on
+    # rank 0 only, which stage 2's reduce-scatter leaves in rank 0's block:
+    # rank 1's own shards stay finite, and only found_inf's MAX over the
+    # ranks makes it skip
+    m = model()
+    base = gpt_loss(m)
+
+    def poisoned(params, key, a, b, poison):
+        w = params["blocks_fc1_w"]
+        return base(params, key, a, b) + poison.sum() * w[(0,) * w.dim()]
+
+    step, state = make_zero_train_step(
+        poisoned, dict(m.named_parameters()), AdamW(3e-4), hcg.mesh, layer=m,
+        zero_stage=2, dynamic_loss_scale=True, init_loss_scale=1024.0)
+    before = m.blocks_fc1_w.detach().clone()
+    bad = torch.zeros(B, device="cuda")
+    bad[0] = float("inf")
+    state, _ = step(state, 3e-4, 0, x, y, bad)
+    sc = state["scaler"]
+    out["found_inf"] = dict(found=bool(sc["found_inf"]),
+                            scale=float(sc["scale"]),
+                            step=int(state["opt"]["step"]),
+                            unchanged=bool(torch.equal(m.blocks_fc1_w,
+                                                       before)))
+    state, _ = step(state, 3e-4, 1, x, y, torch.zeros(B, device="cuda"))
+    out["found_inf"]["then"] = (bool(state["scaler"]["found_inf"]),
+                                int(state["opt"]["step"]),
+                                not torch.equal(m.blocks_fc1_w, before))
+    del step, state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # BERT-base DP, 2 layers, fused LN on: B 8 (4 a rank), L 512
+    set_flags({"FLAGS_use_fused_ln": True})
+    bcfg = bert_preset("bert-base", num_hidden_layers=2, vocab_size=30528,
+                       compute_dtype="bfloat16")
+    brng = np.random.RandomState(2)
+    mlm = brng.randint(0, bcfg.vocab_size, (8, 512))
+    mlm[brng.rand(8, 512) < 0.85] = -100
+    batch = [torch.from_numpy(a).cuda() for a in (
+        brng.randint(0, bcfg.vocab_size, (8, 512)), mlm,
+        brng.randint(0, 2, (8,)))]
+    bert = {}
+    for name, h in (("one rank", None), ("dp 2", fleet_hcg(dp_degree=2))):
+        bm = BertModel(bcfg, device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(0))
+        step, state = make_bert_train_step(
+            bm, AdamW(1e-4, weight_decay=0.01), h, remat=False)
+        if h is not None:
+            zero_counts()
+        losses = []
+        for _ in range(3):
+            state, loss = step(state, 1e-4, *batch)
+            losses.append(loss.item())
+        bert[name] = losses
+        del bm, step, state
+    out["bert"] = bert
+    out["bert_launches"] = flash_counts()
+    set_flags({"FLAGS_use_fused_ln": False})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase21_rank(rank, tmp, card):
+    """One of phase 21's two ranks (a spawned process): 21b, 21c and the
+    21d readings over gloo, results pickled for the parent."""
+    import datetime
+    import pickle
+
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import collective
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_parallel_env(backend="gloo", init_method=f"file://{tmp}/rdv",
+                           rank=rank, world_size=2,
+                           timeout=datetime.timedelta(seconds=600))
+    check("jax" not in sys.modules, "phase21: a rank imported jax")
+    t0 = time.perf_counter()
+    out = {"b": rank21b(rank, card)}
+    out["b_s"] = time.perf_counter() - t0
+    out["c"] = rank21c(rank)
+    out["staging"] = dict(collective.HOST_STAGING)
+    out["s"] = time.perf_counter() - t0
+    with open(f"{tmp}/rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase21(card):
+    """Data parallelism on the card: 21a in this process over NCCL at world
+    size 1, then 21b-21d in one spawn of two ranks that share the card over
+    gloo.  Returns the launches of (flash_fwd, dq, dkv, ln_fwd, ln_bwd)."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    a_launches, _ = phase21a(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("phase21b-d: two ranks share this one card over gloo (NCCL refuses "
+        "two ranks on one device); gloo's hops go through the host, so the "
+        "times below are not NCCL's")
+    tmp = tempfile.mkdtemp(prefix="phase21_")
+    mp.start_processes(phase21_rank, args=(tmp, card), nprocs=2, join=True,
+                       start_method="spawn")
+    ranks = []
+    for r in range(2):
+        with open(f"{tmp}/rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+
+    # 21b: the weight-update sharding A/B
+    b = [rk["b"] for rk in ranks]
+    rep, sh = b[0]["replicated"], b[0]["sharded"]
+    red = rep["opt_bytes"] / sh["opt_bytes"]
+    mred = rep["measured"] / max(sh["measured"], 1)
+    say(f"phase21b bench_gpt_weight_update_sharding at R 2 (gpt2s 12 layers, "
+        f"B 16 as 8 a rank, L 1024, bf16, gloo) on {card}: replicated "
+        f"{rep['ms']:.3f} ms/step, update-sharded {sh['ms']:.3f} ms/step "
+        f"(rank 0; rank 1 {b[1]['replicated']['ms']:.3f} / "
+        f"{b[1]['sharded']['ms']:.3f}); opt-state bytes a replica "
+        f"{rep['opt_bytes']} -> {sh['opt_bytes']} ({red:.3f}x analytic), "
+        f"MemoryLedger census {rep['measured']} -> {sh['measured']} "
+        f"({mred:.3f}x measured); final losses {rep['loss']:.6f} / "
+        f"{sh['loss']:.6f}; wire_bytes (fp32) {sh['wire']}")
+    for r, br in enumerate(b):
+        check(br["replicated"]["opt_bytes"] / br["sharded"]["opt_bytes"]
+              >= 1.8 and br["replicated"]["measured"]
+              / max(br["sharded"]["measured"], 1) >= 1.8,
+              f"phase21b rank {r}: opt-state cut under 1.8x: {br}")
+        check(np.isclose(br["sharded"]["loss"], br["replicated"]["loss"],
+                         rtol=1e-4, atol=1e-6),
+              f"phase21b rank {r}: loss parity {br['replicated']['loss']} vs "
+              f"{br['sharded']['loss']}")
+
+    # 21c: ZeRO stages, offload, found_inf, BERT DP
+    c = [rk["c"] for rk in ranks]
+    solo = c[0]["curves"]["one rank"]
+    arms = ("stage 1", "stage 2", "stage 3", "offload")
+    for r, cr in enumerate(c):
+        for name, cv in cr["curves"].items():
+            rel = max(abs(p - q) / abs(q) for p, q in zip(cv, solo))
+            check(np.isfinite(cv).all() and rel <= BF16_RTOL,
+                  f"phase21c rank {r} {name}: {cv} vs one rank {solo}")
+        for name in arms:
+            check(cr["delta"][name][0] <= DELTA_TOL,
+                  f"phase21c rank {r} {name}: the weights' move "
+                  f"{cr['delta'][name]} from one rank's (tol {DELTA_TOL})")
+        check(cr["delta"]["own rows only"][0] > DELTA_TOL,
+              f"phase21c rank {r}: a step on the rank's own rows reads "
+              f"{cr['delta']['own rows only']}, inside the limit "
+              f"{DELTA_TOL}: the check cannot see a missing reduction")
+        for name in arms[:3]:
+            check(cr["census"][name] == cr["bytes"][name],
+                  f"phase21c rank {r} {name}: MemoryLedger census "
+                  f"{cr['census'][name]} != per_device_state_bytes "
+                  f"{cr['bytes'][name]}")
+        check(cr["offload_host"] and cr["offload_host_after"],
+              f"phase21c rank {r}: offload state not on pinned host memory")
+        fi = cr["found_inf"]
+        check(fi["found"] and fi["scale"] == 512.0 and fi["step"] == 0
+              and fi["unchanged"] and fi["then"] == (False, 1, True),
+              f"phase21c rank {r}: found_inf step {fi}")
+        brel = max(abs(p - q) / abs(q) for p, q in
+                   zip(cr["bert"]["dp 2"], cr["bert"]["one rank"]))
+        check(brel <= BF16_RTOL, f"phase21c rank {r}: BERT dp 2 "
+                                 f"{cr['bert']} ({brel})")
+    say(f"phase21c ZeRO at R 2 (gpt2s width, 2 layers, B 8 as 4 a rank, L "
+        f"1024, bf16, gloo) on {card}: one-rank losses "
+        f"{[round(v, 4) for v in solo]}; " + "; ".join(
+            f"{k} {[round(v, 4) for v in c[0]['curves'][k]]} "
+            f"{c[0]['ms'][k]:.3f} ms/step, {c[0]['bytes'][k]} state bytes a "
+            f"rank" + (f" (MemoryLedger census {c[0]['census'][k]})"
+                       if k in c[0]["census"] else " (host)")
+            for k in arms)
+        + f" (losses within {BF16_RTOL} relative); the fp32 weights' move "
+        f"on each rank's blocks against one rank's, by norm / by largest "
+        f"element: " + ", ".join(
+            f"{k} " + " and ".join(f"{cr['delta'][k][0]:.3e} / "
+                                   f"{cr['delta'][k][1]:.3e}" for cr in c)
+            for k in arms + ("own rows only",))
+        + f" (limit {DELTA_TOL} by norm; 'own rows only' is a one-rank step "
+        f"on the rank's 4 rows, the move a step without the gradient "
+        f"reduction makes); offload slots and masters on pinned "
+        f"host memory; found_inf: an inf in rank 0's block of one "
+        f"reduce-scattered gradient skipped the step on both ranks through "
+        f"the MAX over the ranks (scale 1024 -> "
+        f"{c[0]['found_inf']['scale']}, step counter "
+        f"{c[0]['found_inf']['step']}, parameters unchanged), the next step "
+        f"applied; BERT-base 2 layers fused LN dp 2 losses "
+        f"{[round(v, 4) for v in c[0]['bert']['dp 2']]} vs one rank "
+        f"{[round(v, 4) for v in c[0]['bert']['one rank']]}")
+
+    # 21d: multi-rank telemetry over 21b's sharded arm
+    mon, led = ranks[0]["b"]["monitor"], ranks[0]["b"]["ledger"]
+    tokens = sum(rk["b"]["local_tokens"] for rk in ranks)
+    check(mon["world"] == 2 and mon["steps"] == 6
+          and mon["tokens"] == tokens == 3 * 16 * 1024
+          and mon["straggler_skew"] >= 1.0,
+          f"phase21d: monitor aggregate {mon} (tokens {tokens})")
+    check(led["world"] == 2 and abs(led["straggler_skew"]["host_dispatch"]
+                                    - mon["straggler_skew"]) < 1e-9,
+          f"phase21d: ledger aggregate {led} vs {mon}")
+    say(f"phase21d TrainMonitor.aggregate over 21b's sharded arm on {card}: "
+        f"world {mon['world']}, steps {mon['steps']:.0f}, tokens "
+        f"{mon['tokens']:.0f}, global {mon['global_tokens_per_sec']:.1f} "
+        f"tokens/s (host dispatch), straggler skew "
+        f"{mon['straggler_skew']:.4f}; RunLedger.aggregate world "
+        f"{led['world']}, host_dispatch skew "
+        f"{led['straggler_skew']['host_dispatch']:.4f}, goodput "
+        f"{led['goodput']:.4f}")
+
+    launches = [a + sum(rk["c"]["gpt_launches"][i] + rk["c"]["bert_launches"]
+                        [i] for rk in ranks)
+                for i, a in enumerate(a_launches + [0, 0])]
+    # the 21c GPT arms (stages 1-3 and offload: 3 steps each) and BERT dp 2
+    # (3 steps), 2 layers, per rank
+    want_flash = 12 * 12 * 3 + 2 * (4 * 3 * 2 + 3 * 2)
+    check(launches[:3] == [want_flash] * 3 and launches[3:] == [2 * 3 * 4] * 2,
+          f"phase21: launches {launches}")
+    staged = ranks[0]["staging"]
+    say(f"phase21 took {time.perf_counter() - t0:.1f} s on {card} (the ranks "
+        f"{ranks[0]['s']:.1f} s, 21b {ranks[0]['b_s']:.1f} s of it); gloo's "
+        f"pinned host copies on rank 0: {staged['copies']} "
+        f"({staged['bytes'] / 2**30:.3f} GiB); launches flash fwd/dq/dkv "
+        f"{launches[:3]}, fused LN fwd/bwd {launches[3:]}")
+    return launches
+
+
 def bytes_ops_bound(nbytes, flops):
     """(ms, "bytes"|"operations") of the larger bound; fp32 flops."""
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -4709,6 +5270,9 @@ def card_line():
     return out.stdout.strip()
 
 
+T_START = time.perf_counter()
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
@@ -4753,6 +5317,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     fleet_launches = phase20(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dp_launches = phase21(card)
 
     ms, plain_ms, library_ms, bound_ms, bound_by, _ = t = time_pack(main_pack)
     say_pack_time("bf16 pools at the phase-3 shapes", t, card)
@@ -4806,7 +5373,9 @@ def main():
         f"(phase 18) + {moe_launches[4]} (phase 19's serves); ragged also "
         f"+ {moe_launches[0]} (phase 19's ERNIE-MoE serves); phase 20's "
         f"fleet: ragged {fleet_launches[0]}, flash_fwd {fleet_launches[1]}, "
-        f"paged decode {fleet_launches[2]}")
+        f"paged decode {fleet_launches[2]}; phase 21's data parallelism: "
+        f"flash fwd/dq/dkv {dp_launches[:3]}, fused LN fwd/bwd "
+        f"{dp_launches[3:]}")
     say(card)                        # the nvidia-smi name,power.limit line
     pack = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
@@ -4815,10 +5384,11 @@ def main():
                        launches + gen_launches[0] + tel_launches[0]
                        + moe_launches[0] + fleet_launches[0], pack)]
     flash_launches = tuple(
-        a + b + c for a, b, c in zip((flash_launches[0] + gen_launches[2]
-                                      + fleet_launches[1],
-                                      *flash_launches[1:]), tel_launches[2],
-                                     moe_launches[1:4]))
+        a + b + c + d for a, b, c, d in zip(
+            (flash_launches[0] + gen_launches[2] + fleet_launches[1],
+             *flash_launches[1:]), tel_launches[2], moe_launches[1:4],
+            dp_launches[:3]))
+    ln_launches = tuple(a + b for a, b in zip(ln_launches, dp_launches[3:]))
     rows += [kernel_row(name, FLASH_SOURCE, FLASH_REPLACES[name], n, r)
              for (name, r), n in zip(flash.items(), flash_launches)]
     rows += [kernel_row(name, FUSED_SOURCE, FUSED_REPLACES[name], n, r)
@@ -4830,6 +5400,7 @@ def main():
         + moe_launches[4] + fleet_launches[2],
         dict(max_abs_err=decode_err, ms=d[0], plain_ms=d[1], library_ms=d[2],
              bound_ms=d[4], bound_by=d[5])))
+    say(f"chip_smoke took {time.perf_counter() - T_START:.1f} s on {card}")
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -98,6 +98,14 @@ flash forward at admission and the paged decode kernel):
   ``ops_server`` (``OpsServer``, ``compute_probe`` on the card),
   ``telemetry_fleet`` (``FleetCollector``, ``TelemetrySpool``) and
   ``simulation`` (``SimClock``, ``SimEngine``, ``TrafficSim``)
+
+and data-parallel training on ``torch.distributed``, one process per rank
+(the flash and fused LN kernels run in every rank's step):
+
+- ``distributed`` (``env``, ``collective``, ``topology``, ``fleet``,
+  ``grad_comm``, ``sharding_rules``, ``spmd``, ``zero``,
+  ``update_sharding``) and the data, sharding, ZeRO, update-sharding and
+  ``grad_comm`` arms of the GPT and BERT train-step builders
 """
 
 import torch

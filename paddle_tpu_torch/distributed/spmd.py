@@ -1,13 +1,40 @@
-"""The train step, one-device arm (counterpart of
-``paddle_tpu/distributed/spmd.py`` ``_make_gspmd_step`` /
-``make_gspmd_step_from_loss``).  Meshes of more than one device wait for
-the distributed slice of the port.
+"""The train steps over a mesh of data × sharding ranks (counterpart of
+``paddle_tpu/distributed/spmd.py`` ``make_spmd_train_step``,
+``_make_gspmd_step``, ``make_gspmd_step_from_loss``, ``shard_batch`` and
+``make_gspmd_sharded_init_step``).
+
+The reference jits one program over its mesh and lets GSPMD place the
+collectives.  Here every rank runs the step on its own process
+(``topology.ProcessMesh``) and the collectives are explicit:
+
+- every rank is given the GLOBAL batch and takes its rows (dim 0 split
+  over the data × sharding ranks in rank order);
+- the loss is the mean over the ranks of each rank's mean (equal row
+  counts: the global mean); the gradients are the mean over the ranks
+  (one flat all-reduce; under a sharded parameter or ZeRO-2 layout a
+  reduce-scatter into the slot layout instead);
+- ``grad_comm`` runs in LOCAL mode on the mean-reduced fp32 gradient, as
+  in the reference's GSPMD steps (``grad_comm.py``);
+- each rank updates its shard of the optimizer slots (the ``sharding``
+  axis of the slot specs, ZeRO-1 as the reference's specs give it) and
+  the parameters are all-gathered back where their spec replicates them.
+
+A mesh of one rank (or none) takes the one-device step: the loss and its
+gradients, then ``optimizer.update``, with nothing to communicate.
+``shard_map``, ``spmd_pipeline*`` and ``ensure_varying`` wait for ROADMAP
+A7b/A7c.
 """
 
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
 from torch import nn
+
+from .sharding_rules import (batch_spec, build_param_specs,
+                             build_state_shardings, gather_full, local_shard,
+                             replicated_spec, spec_shards)
 
 
 class _Thunk(nn.Module):
@@ -22,44 +49,335 @@ class _Thunk(nn.Module):
         return fn()
 
 
-def make_gspmd_step_from_loss(loss_of, params0, optimizer, mesh=None,
-                              layer=None, zero_stage: int = 0,
-                              donate: bool = True, grad_comm=None):
-    """Train step for a functional loss on one device (``mesh`` None):
-    ``loss_of(params, *batch) -> scalar``.  Returns ``(step, state0)`` with
-    ``step(state, lr, *batch) -> (state, loss)`` and state ``{"params",
-    "opt", "buffers"}``.
+# --------------------------------------------------------------------------
+# the pieces every step shares
+# --------------------------------------------------------------------------
 
-    ``params0`` is a dict of leaf tensors that require grad (a model's own
-    parameters: the state holds them, not copies), and the loss reads
-    ``layer``'s (the model's) parameters.
+def _rows(batch, R: int, idx: int, skip=()):
+    """This rank's rows of the batch: each tensor of rank >= 1 (nested in
+    lists, tuples and dicts too) split into ``R`` equal blocks along dim
+    0, block ``idx`` kept; positions in ``skip`` ride whole."""
+    def one(x):
+        if isinstance(x, torch.Tensor) and x.dim() >= 1:
+            if x.shape[0] % R:
+                raise ValueError(f"a batch of {x.shape[0]} rows does not "
+                                 f"split over {R} ranks")
+            n = x.shape[0] // R
+            return x[idx * n:(idx + 1) * n]
+        if isinstance(x, (list, tuple)):
+            return type(x)(one(v) for v in x)
+        if isinstance(x, dict):
+            return {k: one(v) for k, v in x.items()}
+        return x
+    if R <= 1:
+        return tuple(batch)
+    return tuple(x if i in skip else one(x) for i, x in enumerate(batch))
 
-    ``donate=True``: the step computes the loss and its gradients, applies
-    ``optimizer.update``, and writes the new parameters and optimizer slots
-    INTO the state's tensors under ``no_grad`` — the counterpart of the
-    reference's donated state, so the model that owns the parameters sees
-    every update and no second copy outlives the step.  The returned state
-    is the same dict.
 
-    ``donate=False``: the step computes on the given state's tensors
-    (``torch.func.functional_call`` swaps them into ``layer`` for the
-    forward and the backward), leaves that state and the model's own
-    parameters untouched, and returns a fresh state that shares no tensor
-    with the one it was given."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh is the distributed slice of the port (ROADMAP A7)")
-    if zero_stage:
-        raise NotImplementedError("zero_stage > 0 is not ported yet "
-                                  "(ROADMAP A7)")
-    if grad_comm not in (None, "fp32"):
-        raise NotImplementedError(f"grad_comm {grad_comm!r} is not ported "
-                                  f"yet (ROADMAP A7)")
+def _trainable(params0, layer):
+    """The names the step differentiates: a layer's parameters that
+    require grad; every name of a functional (plain tensor) tree."""
+    if layer is None:
+        return list(params0)
+    return [n for n, p in params0.items() if p.requires_grad]
+
+
+def _loss_and_grads(loss_of, leaves, trainable, holder, batch, scale=None,
+                    accumulate_steps: int = 1):
+    """(detached loss, {name: grad}) of ``loss_of(leaves, *batch)``.  With
+    ``holder`` (the layer) whose own parameters are not ``leaves``,
+    ``torch.func.functional_call`` swaps them in for the forward and the
+    backward (a recomputed block reads the same tensors).  ``scale``
+    multiplies the loss before the backward (ZeRO's loss scale).  With
+    ``accumulate_steps`` the rows split into that many micro-batches,
+    whose losses and gradients are averaged."""
+    own = holder is None or all(
+        leaves.get(n) is p for n, p in holder.layer.named_parameters())
+
+    def run(*b):
+        loss = loss_of(leaves, *b)
+        obj = loss if scale is None else loss * scale
+        return loss.detach(), torch.autograd.grad(
+            obj, [leaves[n] for n in trainable])
+
+    def call(b):
+        if own:
+            return run(*b)
+        return torch.func.functional_call(
+            holder, {f"layer.{n}": t for n, t in leaves.items()},
+            (lambda: run(*b),))
+
+    if accumulate_steps <= 1:
+        loss, g = call(batch)
+        return loss, dict(zip(trainable, g))
+    loss, acc = None, None
+    for m in range(accumulate_steps):
+        lm, gm = call(_rows(batch, accumulate_steps, m))
+        loss = lm if loss is None else loss + lm
+        acc = list(gm) if acc is None else [a + b for a, b in zip(acc, gm)]
+    return loss / accumulate_steps, {n: a / accumulate_steps
+                                     for n, a in zip(trainable, acc)}
+
+
+def _mean_all(grads: Dict[str, torch.Tensor], group, R: int):
+    """The gradients' mean over ``group``: one flat fp32 all-reduce."""
+    from .collective import ReduceOp, all_reduce
+    if R <= 1 or not grads:
+        return grads
+    names = sorted(grads)
+    flat = torch.cat([grads[n].reshape(-1).float() for n in names])
+    all_reduce(flat, ReduceOp.SUM, group)
+    flat /= R
+    out, off = {}, 0
+    for n in names:
+        g = grads[n]
+        out[n] = flat[off:off + g.numel()].view(g.shape).to(g.dtype)
+        off += g.numel()
+    return out
+
+
+def _sharded_dim(spec, mesh, axis="sharding"):
+    """The dim ``spec`` splits over ``axis`` (None if none)."""
+    for d, e in enumerate(spec):
+        if e == axis and mesh.shape.get(axis, 1) > 1:
+            return d
+    return None
+
+
+def _reduce_scatter_grads(grads, s_specs, mesh, group, R: int):
+    """The gradients' mean, each landing in its slot layout: a tensor
+    whose slot spec splits a dim over "sharding" is summed over the data
+    group and reduce-scattered over the sharding group along that dim
+    (the ZeRO-2 contract); the rest go through one flat all-reduce."""
+    from .collective import ReduceOp, all_reduce, reduce_scatter_dim
+    data = mesh.axis_group("data")
+    shard = mesh.axis_group("sharding")
+    out, rest = {}, {}
+    for n in sorted(grads):
+        d = _sharded_dim(s_specs[n], mesh)
+        if d is None:
+            rest[n] = grads[n]
+            continue
+        g = grads[n].float().contiguous()
+        if data.nranks > 1:
+            all_reduce(g, ReduceOp.SUM, data)
+        out[n] = reduce_scatter_dim(g, d, shard) / R
+    out.update(_mean_all(rest, group, R))
+    return out
+
+
+def _clip_shards(clip, grads, specs, mesh):
+    """The optimizer's clip over gradients held as shards under ``specs``,
+    with whole-tensor semantics (``nn/clip.py``)."""
+    if clip is None:
+        return grads
+    split = {n for n in grads if _sharded_dim(specs[n], mesh) is not None}
+    if not split:
+        return clip._clip_pytree(grads)
+    return clip._clip_shards(grads, split, mesh.axis_group("sharding"))
+
+
+def _rank_loss_and_grads(loss_of, params, p_specs, p_split, mesh, holder,
+                         trainable, rows, scale=None,
+                         accumulate_steps: int = 1):
+    """(loss, grads) of this rank's ``rows``: the parameters ``p_split``
+    names are all-gathered for the forward and the backward, and the
+    gathered copies die with the call (ZeRO-3)."""
+    full = {n: (gather_full(t, p_specs[n], mesh) if p_split[n] else t)
+            for n, t in params.items()}
+    leaves = {n: (t if (holder is not None and t.requires_grad
+                        and not p_split[n]) else
+                  t.detach().requires_grad_(n in trainable))
+              for n, t in full.items()}
+    return _loss_and_grads(loss_of, leaves, trainable, holder, rows, scale,
+                           accumulate_steps)
+
+
+def _found_inf(grads, group):
+    """Whether a gradient is non-finite on any rank of ``group``: each
+    rank's flag MAX-reduced, so a step is skipped on every rank or on
+    none (a rank's shards may all be finite while another's are not)."""
+    from .collective import ReduceOp, all_reduce
+    bad = torch.stack([(~torch.isfinite(g)).any()
+                       for g in grads.values()]).any().to(torch.int32)
+    all_reduce(bad, ReduceOp.MAX, group)
+    return bad > 0
+
+
+def _clone_tree(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree
+
+
+def _global_loss(loss, group, R: int):
+    from .collective import ReduceOp, all_reduce
+    out = loss.detach().float().clone()
+    if R > 1:
+        all_reduce(out, ReduceOp.SUM, group)
+        out /= R
+    return out
+
+
+# --------------------------------------------------------------------------
+# the step over a mesh
+# --------------------------------------------------------------------------
+
+def _make_mesh_step(loss_of, params0, optimizer, mesh, layer, p_specs,
+                    s_specs, policy, donate: bool = True, *, zero=None,
+                    accumulate_steps: int = 1, comm_spec=None):
+    """The shared step over ``mesh`` (module docstring).  ``zero`` None
+    is the GSPMD counterpart; a dict adds ZeRO's contract
+    (``master_keys``, ``dynamic``, ``init_scale``, ``growth_interval``,
+    ``backoff``, ``growth``, ``stage``): fp32 masters, the loss scale,
+    ``found_inf`` (MAX-reduced over the world: a non-finite step is
+    skipped on every rank) and the stage-2 reduce-scatter.
+    ``comm_spec``: the spec of the flat ``comm_e`` residual.  Returns
+    ``(step, state0)`` with ``step(state, lr, *batch) -> (state,
+    loss)``."""
+    from .grad_comm import apply_policy_local
+
+    group, bidx = mesh.batch_group()
+    R = group.nranks
+    dev = next(iter(params0.values())).device
+    trainable = _trainable(params0, layer)
+    p_split = {n: spec_shards(p_specs[n], mesh) for n in params0}
+    s_split = {n: spec_shards(s_specs[n], mesh) for n in params0}
+    master_keys = set(zero["master_keys"]) if zero else set()
+    stage = zero["stage"] if zero else 0
+
+    def shard(t, spec):
+        return local_shard(t.detach(), spec, mesh) \
+            if spec_shards(spec, mesh) else t
+
+    params_state = {n: (shard(p, p_specs[n]) if p_split[n] else p)
+                    for n, p in params0.items()}
+    master0 = {k: params0[k].detach().float() for k in master_keys}
+    upd0 = {k: master0.get(k, p) for k, p in params0.items()}
+    opt0 = optimizer.init_state(upd0)
+    opt0["slots"] = {n: {k: (shard(v, s_specs[n]) if v.dim() > 0 else v)
+                         for k, v in s.items()}
+                     for n, s in opt0["slots"].items()}
+    state0 = {"params": params_state, "opt": opt0}
+    if zero:
+        opt0["step"] = opt0["step"].to(dev)
+        state0["master"] = {k: shard(v, s_specs[k]) for k, v in
+                            master0.items()}
+        state0["scaler"] = {
+            "scale": torch.tensor(zero["init_scale"] if zero["dynamic"]
+                                  else 1.0, dtype=torch.float32, device=dev),
+            "good_steps": torch.zeros((), dtype=torch.int32, device=dev),
+            "found_inf": torch.zeros((), dtype=torch.bool, device=dev)}
+    else:
+        state0["buffers"] = {}
+    comm_spec = comm_spec if comm_spec is not None else replicated_spec()
+    if policy.stateful:
+        state0["comm_e"] = shard(policy.residual_for(params0, device=dev),
+                                 comm_spec)
+    holder = _Thunk(layer) if layer is not None else None
+    # the stage-2/3 layout: gradients reduce-scattered into the slots'
+    # shards (a non-fp32 local policy needs the whole mean gradient)
+    rs_layout = policy.name == "fp32" and (stage >= 2 or any(p_split.values()))
+
+    def step(state, lr, *batch):
+        if not donate:
+            state = _clone_tree(state)
+        scale = state["scaler"]["scale"] if zero else None
+        loss, grads = _rank_loss_and_grads(
+            loss_of, state["params"], p_specs, p_split, mesh, holder,
+            trainable, _rows(batch, R, bidx), scale, accumulate_steps)
+        if zero:
+            inv = torch.where(scale > 0, 1.0 / scale, torch.zeros_like(scale))
+            grads = {n: g.float() * inv for n, g in grads.items()}
+        grads = (_reduce_scatter_grads(grads, s_specs, mesh, group, R)
+                 if rs_layout else _mean_all(grads, group, R))
+        found_inf = _found_inf(grads, group) if zero else None
+        comm_state = {}
+        if policy.name != "fp32":
+            e = state.get("comm_e")
+            if e is not None and spec_shards(comm_spec, mesh):
+                e = gather_full(e, comm_spec, mesh)
+            grads, comm_state = apply_policy_local(
+                policy, grads, {"comm_e": e}, found_inf)
+        with torch.no_grad():
+            if not rs_layout:
+                grads = {n: (local_shard(g, s_specs[n], mesh)
+                             if s_split[n] else g) for n, g in grads.items()}
+            params = state["params"]
+            upd = {n: (state["master"][n] if n in master_keys else
+                       params[n] if p_split[n] or not s_split[n] else
+                       local_shard(params[n], s_specs[n], mesh))
+                   for n in trainable}
+            grads = _clip_shards(optimizer._grad_clip, grads, s_specs, mesh)
+            new_upd, new_opt = optimizer._apply_update(
+                grads, {"step": state["opt"]["step"],
+                        "slots": {n: state["opt"]["slots"][n]
+                                  for n in trainable}}, upd, lr=lr)
+            if found_inf is not None:
+                new_upd = {n: torch.where(found_inf, upd[n], v)
+                           for n, v in new_upd.items()}
+                new_opt["step"] = torch.where(found_inf, state["opt"]["step"],
+                                              new_opt["step"])
+                for n, s in new_opt["slots"].items():
+                    old = state["opt"]["slots"][n]
+                    for k, v in s.items():
+                        s[k] = torch.where(found_inf, old[k], v)
+            slots = state["opt"]["slots"]
+            for n, s in new_opt["slots"].items():
+                for k, v in s.items():
+                    if v is not slots[n][k]:
+                        slots[n][k].copy_(v)
+            state["opt"]["step"] = new_opt["step"]
+            for n, v in new_upd.items():
+                if n in master_keys:
+                    state["master"][n].copy_(v)
+                p = params[n]
+                v = v.to(p.dtype)
+                if s_split[n] and not p_split[n]:
+                    v = gather_full(v, s_specs[n], mesh)
+                if v is not p:
+                    p.copy_(v)
+            if "comm_e" in comm_state:
+                new_e = comm_state["comm_e"]
+                state["comm_e"].copy_(local_shard(new_e, comm_spec, mesh)
+                                      if spec_shards(comm_spec, mesh)
+                                      else new_e)
+            if zero:
+                sc = state["scaler"]
+                if zero["dynamic"]:
+                    good = torch.where(found_inf, torch.zeros_like(
+                        sc["good_steps"]), sc["good_steps"] + 1)
+                    grow = good >= zero["growth_interval"]
+                    sc["scale"] = torch.where(
+                        found_inf,
+                        torch.clamp(sc["scale"] * zero["backoff"], min=1.0),
+                        torch.where(grow, sc["scale"] * zero["growth"],
+                                    sc["scale"]))
+                    sc["good_steps"] = torch.where(grow, torch.zeros_like(
+                        good), good)
+                sc["found_inf"] = found_inf
+        return state, _global_loss(loss, group, R)
+
+    return step, state0
+
+
+# --------------------------------------------------------------------------
+# the one-device step
+# --------------------------------------------------------------------------
+
+def _make_local_step(loss_of, params0, optimizer, layer, donate, policy):
+    """The step on one device (no mesh, or a mesh of one rank)."""
+    from .grad_comm import apply_policy_local
+
     if not donate and layer is None:
         raise ValueError("donate=False needs the layer whose parameters the "
                          "loss reads")
     state0 = {"params": dict(params0), "opt": optimizer.init_state(params0),
               "buffers": {}}
+    if policy.stateful:
+        state0["comm_e"] = policy.residual_for(params0)
     trainable = [n for n, p in params0.items() if p.requires_grad]
 
     def donated(state, lr, *batch):
@@ -68,6 +386,7 @@ def make_gspmd_step_from_loss(loss_of, params0, optimizer, mesh=None,
         grads = dict(zip(trainable, torch.autograd.grad(
             loss, [params[n] for n in trainable])))
         with torch.no_grad():
+            grads, comm_state = apply_policy_local(policy, grads, state)
             new_p, new_opt = optimizer.update(grads, state["opt"], params,
                                               lr=lr)
             for n, p in params.items():
@@ -79,6 +398,8 @@ def make_gspmd_step_from_loss(loss_of, params0, optimizer, mesh=None,
                     if v is not slots[n][k]:
                         slots[n][k].copy_(v)
             state["opt"]["step"] = new_opt["step"]
+            if "comm_e" in comm_state:
+                state["comm_e"].copy_(comm_state["comm_e"])
         return state, loss.detach()
 
     holder = _Thunk(layer) if layer is not None else None
@@ -86,19 +407,10 @@ def make_gspmd_step_from_loss(loss_of, params0, optimizer, mesh=None,
     def kept(state, lr, *batch):
         leaves = {n: p.detach().requires_grad_(n in trainable)
                   for n, p in state["params"].items()}
-
-        def run():
-            loss = loss_of(leaves, *batch)
-            return loss, torch.autograd.grad(
-                loss, [leaves[n] for n in trainable])
-
-        # the backward runs inside the call too: a recomputed (remat)
-        # block must read the same swapped-in tensors
-        loss, g = torch.func.functional_call(
-            holder, {f"layer.{n}": t for n, t in leaves.items()}, (run,))
+        loss, g = _loss_and_grads(loss_of, leaves, trainable, holder, batch)
         with torch.no_grad():
-            new_p, new_opt = optimizer.update(dict(zip(trainable, g)),
-                                              state["opt"], leaves, lr=lr)
+            g, comm_state = apply_policy_local(policy, g, state)
+            new_p, new_opt = optimizer.update(g, state["opt"], leaves, lr=lr)
             old = state["opt"]["slots"]
             fresh = {"params": {n: (v.clone() if v is leaves[n] else v)
                                 for n, v in new_p.items()},
@@ -107,6 +419,120 @@ def make_gspmd_step_from_loss(loss_of, params0, optimizer, mesh=None,
                              for k, v in s.items()}
                          for n, s in new_opt["slots"].items()}},
                      "buffers": dict(state["buffers"])}
-        return fresh, loss.detach()
+            if policy.stateful:
+                fresh["comm_e"] = comm_state["comm_e"]
+        return fresh, loss
 
     return (donated if donate else kept), state0
+
+
+def _is_solo(mesh) -> bool:
+    return mesh is None or mesh.size <= 1
+
+
+# --------------------------------------------------------------------------
+# the builders
+# --------------------------------------------------------------------------
+
+def make_spmd_train_step(layer, loss_fn, optimizer, hcg, zero_stage: int = 0,
+                         accumulate_steps: int = 1, donate: bool = True,
+                         monitor=None, grad_comm=None):
+    """The train step over the hybrid mesh for an ``nn.Module`` and a loss
+    callable (PyTorch idiom; the reference functionalizes its Layer):
+    ``step(state, key, lr, inputs, labels) -> (state, loss)`` with
+    ``loss = loss_fn(layer(*inputs), *labels)`` the global mean.  Every
+    rank passes the global ``inputs``/``labels`` lists and takes its rows.
+    ``key`` is accepted and not read (the reference seeds its layers'
+    dropout with it).  Returns ``(step, state0, state_specs)``: the state
+    ``{"params", "opt", "buffers"}`` (``comm_e`` with a stateful
+    ``grad_comm``) holds this rank's shards; ``state_specs`` is their
+    spec tree (the reference returns ``NamedSharding``s of it)."""
+    from ..telemetry import instrument_train_step
+    from .grad_comm import comm_info, resolve_policy
+
+    policy = resolve_policy(grad_comm)
+    mesh = hcg.mesh
+    params0 = dict(layer.named_parameters())
+
+    def loss_of(params, inputs, labels):
+        out = layer(*inputs)
+        main = out[0] if isinstance(out, (list, tuple)) else out
+        return loss_fn(main, *labels)
+
+    p_specs = build_param_specs(params0, mesh, layer, zero_stage)
+    s_specs = _slot_specs(p_specs, params0, mesh, zero_stage)
+    raw, state0 = _make_mesh_step(loss_of, params0, optimizer, mesh, layer,
+                                  p_specs, s_specs, policy, donate,
+                                  accumulate_steps=accumulate_steps)
+    state0["buffers"] = dict(layer.named_buffers())
+    specs = build_state_shardings(state0, p_specs, mesh, zero_stage, params0)
+    if policy.stateful:
+        specs["comm_e"] = replicated_spec()
+
+    def step(state, key, lr, inputs, labels):
+        return raw(state, lr, list(inputs), list(labels))
+
+    return instrument_train_step(step, monitor, "spmd",
+                                 comm=comm_info(params0, policy)), \
+        state0, specs
+
+
+def make_gspmd_step_from_loss(loss_of, params0, optimizer, mesh=None,
+                              layer=None, zero_stage: int = 0,
+                              donate: bool = True, grad_comm=None):
+    """The shared builder for functional models (gpt/bert):
+    ``loss_of(params, *batch) -> scalar``.  Returns ``(step, state0)``
+    with ``step(state, lr, *batch) -> (state, loss)`` and state
+    ``{"params", "opt", "buffers"}`` (``comm_e`` under a stateful
+    ``grad_comm``, applied in local mode).
+
+    ``params0`` are a layer's own parameters (``layer``, read by the loss)
+    or a plain dict of tensors the loss reads from its ``params``
+    argument.  With ``donate`` the step writes the new parameters and
+    slots INTO the state's tensors (the model sees every update);
+    ``donate=False`` leaves the given state untouched and returns a fresh
+    one.  Over a mesh of more than one rank the slots shard over
+    "sharding" as ZeRO-1 (the reference's ``max(zero_stage, 1)``) and the
+    batch rows split over the ranks (module docstring)."""
+    from .grad_comm import resolve_policy
+    policy = resolve_policy(grad_comm)
+    if _is_solo(mesh):
+        return _make_local_step(loss_of, params0, optimizer, layer, donate,
+                                policy)
+    p_specs = build_param_specs(params0, mesh, layer, zero_stage)
+    s_specs = _slot_specs(p_specs, params0, mesh, max(zero_stage, 1))
+    return _make_mesh_step(loss_of, params0, optimizer, mesh, layer, p_specs,
+                           s_specs, policy, donate)
+
+
+def _slot_specs(p_specs, params0, mesh, zero_stage):
+    from .sharding_rules import _slot_spec
+    return {k: _slot_spec(p_specs[k], p, mesh, zero_stage)
+            for k, p in params0.items()}
+
+
+def shard_batch(batch, hcg):
+    """This rank's rows of every tensor in ``batch`` along the data axis
+    (the reference puts the batch dim on "data": ``batch_spec``)."""
+    mesh = hcg.mesh
+    spec = batch_spec(mesh)
+    if not spec:
+        return batch
+    R, idx = mesh.shape["data"], mesh.coord["data"]
+    out = _rows((batch,), R, idx)[0]
+    return out
+
+
+def make_gspmd_sharded_init_step(loss_of, build_params, optimizer, mesh,
+                                 meta_layer=None, zero_stage: int = 0,
+                                 donate: bool = True, seed: int = 0,
+                                 grad_comm=None):
+    """Like ``make_gspmd_step_from_loss`` with the state built from
+    ``build_params(seed) -> {name: tensor}`` (the same on every rank) and
+    each rank keeping only its shards (``zero_stage`` 3 shards the
+    parameters too).  The reference initialises each device's shard
+    directly under jit; here each rank builds the whole tree once and
+    keeps its blocks (``ROADMAP.md`` §C)."""
+    return make_gspmd_step_from_loss(loss_of, build_params(seed), optimizer,
+                                     mesh, meta_layer, zero_stage, donate,
+                                     grad_comm)

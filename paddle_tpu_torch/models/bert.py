@@ -26,7 +26,8 @@ from ..core.flags import flag
 from ..ops.attention import dense_attention, flash_attention
 from ..ops.fused import fused_ln_residual_dropout
 from ..ops.loss import softmax_cross_entropy_weighted_mean
-from .gpt import _COMPUTE_DTYPES, _mesh_degrees, load_numpy_state
+from .gpt import (_COMPUTE_DTYPES, _check_degrees, _rank_batch_info,
+                  load_numpy_state)
 
 
 class BertConfig:
@@ -257,8 +258,10 @@ class BertModel(nn.Module):
 
     def pretrain_loss_fn(self, input_ids, mlm_labels, nsp_labels=None,
                          token_type_ids=None, attention_mask=None,
-                         remat=False):
-        """MLM (ignore label -100, any negative label) + optional NSP."""
+                         remat=False, mlm_scale=None):
+        """MLM (ignore label -100, any negative label) + optional NSP.
+        ``mlm_scale`` multiplies the MLM mean (the data-parallel step's
+        share of the global valid-label count)."""
         h = self.encode(input_ids, token_type_ids,
                         attn_mask=self._additive_mask(attention_mask),
                         remat=remat)
@@ -267,6 +270,8 @@ class BertModel(nn.Module):
         safe = torch.where(valid, mlm_labels, torch.zeros_like(mlm_labels))
         mlm_loss = softmax_cross_entropy_weighted_mean(logits, safe,
                                                        valid.float())
+        if mlm_scale is not None:
+            mlm_loss = mlm_loss * mlm_scale
         if nsp_labels is None:
             return mlm_loss
         pooled = self.pool_fn(h).float()
@@ -281,39 +286,83 @@ class BertModel(nn.Module):
         return h, self.pool_fn(h)
 
 
-def make_bert_train_step(model: BertModel, optimizer, hcg=None,
-                         remat: bool = True, donate: bool = True):
-    """The MLM + NSP pretraining step on one device: ``step(state, lr,
-    input_ids, mlm_labels, nsp_labels) -> (state, loss)``, with ``state =
-    {"params", "opt", "buffers"}`` and ``state["params"]`` the model's own
-    parameters, updated in place with the optimizer slots
-    (``distributed.spmd``); ``donate=False`` leaves the given state and
-    the model untouched and returns a fresh state.  ``hcg`` is None or a
-    one-device hybrid group; parallel degrees raise
-    ``NotImplementedError`` (ROADMAP A7)."""
-    from ..distributed.spmd import make_gspmd_step_from_loss
-
-    degrees = _mesh_degrees(hcg)
-    if any(d > 1 for d in degrees.values()):
-        raise NotImplementedError(
-            f"parallel degrees {degrees} are the distributed slice of the "
-            f"port (ROADMAP A7); pass hcg=None or a one-device group")
+def _bert_loss(model, mesh, remat):
+    """The MLM + NSP loss on this rank's rows.  Over several ranks each
+    rank's MLM mean is scaled by its share of the global valid-label
+    count (one all-reduce of the counts), so the mean over the ranks is
+    the reference's weighted mean over the whole batch."""
+    from ..distributed.collective import ReduceOp, all_reduce
+    group = None if mesh is None or mesh.size <= 1 else \
+        mesh.batch_group()[0]
 
     def loss_of(params, input_ids, mlm_labels, nsp_labels):
-        # ``params`` are the tensors ``model`` holds for this call
+        scale = None
+        if group is not None:
+            n = (mlm_labels >= 0).sum().float()
+            total = all_reduce(n.clone(), ReduceOp.SUM, group)
+            scale = n * group.nranks / torch.clamp(total, min=1.0)
         return model.pretrain_loss_fn(input_ids, mlm_labels, nsp_labels,
-                                      remat=remat)
+                                      remat=remat, mlm_scale=scale)
 
-    return make_gspmd_step_from_loss(loss_of, dict(model.named_parameters()),
-                                     optimizer, layer=model, donate=donate)
+    return loss_of
+
+
+def make_bert_train_step(model: BertModel, optimizer, hcg=None,
+                         remat: bool = True, donate: bool = True,
+                         zero_stage: int = 0, grad_comm=None, monitor=None):
+    """The MLM + NSP pretraining step: ``step(state, lr, input_ids,
+    mlm_labels, nsp_labels) -> (state, loss)``, with ``state = {"params",
+    "opt", "buffers"}`` and ``state["params"]`` the model's own
+    parameters, updated in place with the optimizer slots
+    (``distributed.spmd``); ``donate=False`` leaves the given state and
+    the model untouched and returns a fresh state.  ``hcg`` None or a
+    hybrid group over data and sharding degrees (each rank is given the
+    global batch and takes its rows; the loss is the global weighted
+    mean).  ``zero_stage`` > 0 routes through ``distributed.zero`` (the
+    reference's BERT step takes no such argument: its ZeRO is the
+    sharded-init specs, ``make_sharded_bert_train_step``).  Model, pipe
+    and sep degrees raise (ROADMAP A7b/A7c)."""
+    from ..distributed.grad_comm import comm_info, resolve_policy
+    from ..distributed.spmd import make_gspmd_step_from_loss
+    from ..telemetry import instrument_train_step
+
+    mesh = _check_degrees(hcg)
+    policy = resolve_policy(grad_comm)
+    params0 = dict(model.named_parameters())
+    loss_of = _bert_loss(model, mesh, remat)
+    if zero_stage > 0:
+        from ..distributed.zero import make_zero_train_step
+        step, state0 = make_zero_train_step(
+            loss_of, params0, optimizer, mesh, layer=model,
+            zero_stage=zero_stage, donate=donate, grad_comm=policy)
+    else:
+        step, state0 = make_gspmd_step_from_loss(
+            loss_of, params0, optimizer, mesh, layer=model, donate=donate,
+            grad_comm=policy)
+    return instrument_train_step(step, monitor, "bert",
+                                 batch_info=_rank_batch_info(mesh),
+                                 comm=comm_info(params0, policy)), state0
 
 
 def make_sharded_bert_train_step(cfg: BertConfig, optimizer, hcg,
                                  zero_stage: int = 0, seed: int = 0,
-                                 remat: bool = True, donate: bool = True):
-    """The reference's mesh-direct sharded init: the distributed slice."""
-    raise NotImplementedError("make_sharded_bert_train_step is the "
-                              "distributed slice of the port (ROADMAP A7)")
+                                 remat: bool = True, donate: bool = True,
+                                 device=None):
+    """BERT pretraining with the model built here from ``seed`` on
+    ``device`` (default cuda) and each rank keeping its shards (see
+    ``models.gpt.make_sharded_gpt_train_step``: ``zero_stage`` as sharding
+    specs).  Returns ``(step, state0)`` with ``step(state, lr, input_ids,
+    mlm_labels, nsp_labels)``."""
+    from ..distributed.spmd import make_gspmd_sharded_init_step
+
+    mesh = _check_degrees(hcg)
+    dev = resolve_device(device)
+    model = BertModel(cfg, device=dev,
+                      generator=torch.Generator(dev).manual_seed(seed))
+    return make_gspmd_sharded_init_step(
+        _bert_loss(model, mesh, remat),
+        lambda seed: dict(model.named_parameters()), optimizer, mesh, model,
+        zero_stage=zero_stage, donate=donate, seed=seed)
 
 
 def params_from_numpy(np_state, config: BertConfig, device=None) -> BertModel:

@@ -35,7 +35,7 @@ from .gpt import _COMPUTE_DTYPES, StackedDecoder, _mesh_degrees
 
 class ErnieMoeConfig:
     """The reference's config.  ``expert_axis`` names the mesh axis of the
-    experts (a mesh of more than one device raises, ROADMAP A7);
+    experts (a mesh of more than one device raises, ROADMAP A7b);
     ``scan_unroll`` has no effect on the port's loop over layers."""
 
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
@@ -210,7 +210,7 @@ def make_ernie_moe_train_step(model: ErnieMoeModel, optimizer, hcg=None,
     "buffers"}``; with ``donate`` the model's own parameters, updated in
     place, else a fresh state each step (``distributed.spmd``).  ``hcg`` is
     None or a one-device hybrid group (parallel degrees, expert parallelism
-    included, raise: ROADMAP A7).  ``monitor`` (a ``telemetry.
+    included, raise: ROADMAP A7b).  ``monitor`` (a ``telemetry.
     TrainMonitor``) wraps the step as ``make_gpt_train_step``'s does."""
     from ..distributed.spmd import make_gspmd_step_from_loss
     from ..telemetry import instrument_train_step
@@ -219,7 +219,7 @@ def make_ernie_moe_train_step(model: ErnieMoeModel, optimizer, hcg=None,
     if any(d > 1 for d in degrees.values()):
         raise NotImplementedError(
             f"parallel degrees {degrees} are the distributed slice of the "
-            f"port (ROADMAP A7); pass hcg=None or a one-device group")
+            f"port (ROADMAP A7b); pass hcg=None or a one-device group")
 
     def loss_of(params, input_ids, labels):
         h, aux = model.scan_blocks(model.embed_fn(input_ids), remat=remat)
@@ -236,7 +236,7 @@ def make_sharded_ernie_moe_train_step(cfg: ErnieMoeConfig, optimizer, hcg,
                                       remat: bool = True, donate: bool = True):
     """The reference's mesh-direct sharded init: the distributed slice."""
     raise NotImplementedError("make_sharded_ernie_moe_train_step is the "
-                              "distributed slice of the port (ROADMAP A7)")
+                              "distributed slice of the port (ROADMAP A7b)")
 
 
 def params_from_numpy(np_state, config: ErnieMoeConfig,

@@ -83,8 +83,7 @@ class GPTConfig:
                              f"'ulysses', got {sequence_parallel!r}")
         if sequence_parallel is not None:
             raise NotImplementedError(
-                "sequence_parallel (ring/Ulysses attention) is the "
-                "distributed slice of the port (ROADMAP A7)")
+                "sequence_parallel (ring/Ulysses attention) is ROADMAP A7b")
         self.sequence_parallel = sequence_parallel
 
 
@@ -449,9 +448,34 @@ def _mesh_degrees(hcg):
     getters = {"dp": "get_data_parallel_world_size",
                "mp": "get_model_parallel_world_size",
                "pp": "get_pipe_parallel_world_size",
-               "sharding": "get_sharding_parallel_world_size"}
+               "sharding": "get_sharding_parallel_world_size",
+               "sep": "get_sep_parallel_world_size"}
     return {axis: int(getattr(hcg, g)()) for axis, g in getters.items()
             if hasattr(hcg, g)}
+
+
+def _check_degrees(hcg):
+    """Model, pipe and sep degrees wait for their slices; returns the
+    hybrid group's mesh (None without one)."""
+    degrees = _mesh_degrees(hcg)
+    for axis, item in (("mp", "A7b"), ("sep", "A7b"), ("pp", "A7c")):
+        if degrees.get(axis, 1) > 1:
+            raise NotImplementedError(
+                f"{axis} degree {degrees[axis]} waits for ROADMAP {item} "
+                f"(tensor and sequence parallelism A7b, the pipeline "
+                f"A7c); this port trains over data and sharding degrees")
+    return None if hcg is None else hcg.mesh
+
+
+def _rank_batch_info(mesh):
+    """``instrument_train_step``'s (examples, tokens) for a rank that takes
+    1/R of the global batch it is given (None on one rank)."""
+    if mesh is None or mesh.size <= 1:
+        return None
+    from ..telemetry import _default_batch_info
+    R = mesh.batch_group()[0].nranks
+    return lambda args, kwargs: tuple(v // R for v in
+                                      _default_batch_info(args))
 
 
 def make_gpt_train_step(model: GPTModel, optimizer, hcg=None,
@@ -460,52 +484,118 @@ def make_gpt_train_step(model: GPTModel, optimizer, hcg=None,
                         dynamic_loss_scale: bool = False,
                         virtual_pp_degree=None, monitor=None, grad_comm=None,
                         update_sharding: bool = False):
-    """The GPT train step on one device: ``step(state, key, lr, input_ids,
-    labels) -> (state, loss)``, with ``state = {"params", "opt",
-    "buffers"}``.  With ``donate`` (the default) ``state["params"]`` are
-    the model's own parameters, updated in place with the optimizer slots;
-    ``donate=False`` leaves the given state and the model untouched and
-    returns a fresh state (``distributed.spmd``).
+    """The GPT train step: ``step(state, key, lr, input_ids, labels) ->
+    (state, loss)``.  ``hcg`` None (one device) or a hybrid group over
+    data and sharding degrees: each rank is given the global batch, takes
+    its rows, and the loss is the global mean (``distributed.spmd``).
 
-    ``hcg`` is None or a one-device hybrid group.  ``key`` (a
-    ``torch.Generator`` or an int) is accepted and not read: GPT's block
-    applies no dropout.  ``monitor`` (a ``telemetry.TrainMonitor``) wraps
-    the step in ``instrument_train_step(step, monitor, "gpt")``: its first
-    call synchronises the card once and is the compile event, later calls
-    are ``train_step`` samples and add no synchronisation; None returns
-    the bare step.  ``dynamic_loss_scale`` and ``virtual_pp_degree`` are
-    ignored on this path, as in the reference's, and so is
-    ``n_microbatches``: the reference reads it only on its pipeline
-    branch and runs the whole batch on one device.  Pipeline or model
-    parallelism, ZeRO, update sharding and a non-fp32 ``grad_comm`` raise
-    ``NotImplementedError`` (ROADMAP A7)."""
+    - ``zero_stage`` > 0 routes through ``distributed.zero`` (slots and
+      fp32 masters sharded, grads reduce-scattered at stage 2, params
+      sharded at stage 3, ``found_inf`` and ``dynamic_loss_scale``);
+    - ``update_sharding`` shards the weight update over the data ranks
+      (``distributed.update_sharding``, arXiv:2004.13336);
+    - otherwise the data × sharding step (slots ZeRO-1-sharded over
+      "sharding" as the reference's specs give them).
+
+    ``grad_comm`` ("fp32"/"bf16"/"int8_ef" or a policy): local mode in the
+    DP and ZeRO steps, wire mode under ``update_sharding``.  With
+    ``donate`` (the default) ``state["params"]`` are the model's own
+    parameters (their shards under ZeRO-3), updated in place.  ``key`` is
+    accepted and not read: GPT's block applies no dropout.  ``monitor``
+    wraps the step in ``instrument_train_step`` (with ``comm`` events
+    under a compressing policy; each rank counts its own rows).
+    ``dynamic_loss_scale`` outside ZeRO, ``virtual_pp_degree`` and
+    ``n_microbatches`` are ignored, as in the reference off its pipeline
+    branch.  Model, pipe and sep degrees raise (ROADMAP A7b/A7c)."""
+    from ..distributed.grad_comm import comm_info, resolve_policy
     from ..distributed.spmd import make_gspmd_step_from_loss
     from ..telemetry import instrument_train_step
 
-    degrees = _mesh_degrees(hcg)
-    if any(d > 1 for d in degrees.values()):
-        raise NotImplementedError(
-            f"parallel degrees {degrees} are the distributed slice of the "
-            f"port (ROADMAP A7); pass hcg=None or a one-device group")
-    if update_sharding:
-        raise NotImplementedError("update_sharding is not ported yet "
-                                  "(ROADMAP A7)")
+    mesh = _check_degrees(hcg)
+    policy = resolve_policy(grad_comm)
+    params0 = dict(model.named_parameters())
 
     def loss_of(params, key, x, labels):
         # ``params`` are the tensors ``model`` holds for this call (its own
-        # parameters, or the state's swapped in when not donating)
+        # parameters, or the state's swapped in)
         h = model.scan_blocks(model.embed_fn(x, key), key, remat=remat)
         return model.head_loss_fn(h, labels)
 
-    raw, state0 = make_gspmd_step_from_loss(
-        loss_of, dict(model.named_parameters()), optimizer, layer=model,
-        zero_stage=zero_stage, donate=donate, grad_comm=grad_comm)
-    inner = instrument_train_step(raw, monitor, "gpt")
+    if zero_stage > 0:
+        if update_sharding:
+            raise ValueError(
+                "update_sharding composes the plain-DP regime; zero_stage>0 "
+                "already shards the optimizer state over 'sharding' — pick "
+                "one")
+        from ..distributed.zero import make_zero_train_step
+        inner, state0 = make_zero_train_step(
+            loss_of, params0, optimizer, mesh, layer=model,
+            zero_stage=zero_stage, dynamic_loss_scale=dynamic_loss_scale,
+            donate=donate, grad_comm=policy)
+        name = "zero"
+    elif update_sharding:
+        from ..distributed.update_sharding import \
+            make_dp_update_sharded_train_step
+        from ..distributed.zero import _as_mesh
+        # batch layout: (key, x, labels) — the key rides whole
+        inner, state0 = make_dp_update_sharded_train_step(
+            loss_of, params0, optimizer, _as_mesh(mesh), donate=donate,
+            grad_comm=policy, replicated_args=(0,), layer=model)
+        name = "dp_update_sharded"
+    else:
+        inner, state0 = make_gspmd_step_from_loss(
+            loss_of, params0, optimizer, mesh, layer=model, donate=donate,
+            grad_comm=policy)
+        name = "gpt"
+    inner = instrument_train_step(inner, monitor, name,
+                                  batch_info=_rank_batch_info(mesh),
+                                  comm=comm_info(params0, policy))
 
     def step(state, key, lr, x, labels):
         return inner(state, lr, key, x, labels)
 
     return step, state0
+
+
+def make_sharded_gpt_train_step(cfg: GPTConfig, optimizer, hcg,
+                                zero_stage: int = 0, seed: int = 0,
+                                remat=True, donate: bool = True,
+                                monitor=None, grad_comm=None, device=None):
+    """The GPT train step with the model built here from ``seed`` on
+    ``device`` (default cuda) and each rank keeping its shards of the
+    state (``zero_stage`` as sharding SPECS only: 3 shards the parameters;
+    the contractual ZeRO extras ride ``make_gpt_train_step``).  The
+    reference initialises each device's shard directly; here each rank
+    builds the whole model once (the same seed on every rank) and keeps
+    its blocks (``ROADMAP.md`` §C).  ``grad_comm`` runs in local mode (a
+    stateful policy adds a flat ``"comm_e"``).  Returns ``(step, state0)``
+    with ``step(state, lr, key, x, labels)``."""
+    from .. import resolve_device
+    from ..distributed.grad_comm import comm_info, resolve_policy
+    from ..distributed.spmd import make_gspmd_sharded_init_step
+    from ..telemetry import instrument_train_step
+
+    if cfg.sequence_parallel is not None:
+        raise NotImplementedError("sequence_parallel: ROADMAP A7b")
+    mesh = _check_degrees(hcg)
+    dev = resolve_device(device)
+    model = GPTModel(cfg, device=dev,
+                     generator=torch.Generator(dev).manual_seed(seed))
+
+    def build(seed):
+        return dict(model.named_parameters())
+
+    def loss_of(params, key, x, labels):
+        h = model.scan_blocks(model.embed_fn(x, key), key, remat=remat)
+        return model.head_loss_fn(h, labels)
+
+    policy = resolve_policy(grad_comm)
+    step, state0 = make_gspmd_sharded_init_step(
+        loss_of, build, optimizer, mesh, model, zero_stage=zero_stage,
+        donate=donate, seed=seed, grad_comm=policy)
+    return instrument_train_step(
+        step, monitor, "gpt_sharded", batch_info=_rank_batch_info(mesh),
+        comm=comm_info(build(seed), policy)), state0
 
 
 def params_from_numpy(np_state, config: GPTConfig, device=None) -> GPTModel:

@@ -20,7 +20,7 @@ renormalisation over all k selected probabilities (dropped ones
 included), and the aux loss ``E · Σ_e mean_prob_e · routed_fraction_e /
 k``.  ``jitter_key`` is a ``torch.Generator`` (uniform noise in ±1e-2 on
 the logits).  A mesh with an expert axis of more than one device raises:
-expert parallelism is the distributed slice of the port (ROADMAP A7).
+expert parallelism is the distributed slice of the port (ROADMAP A7b).
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ def _check_mesh(mesh, expert_axis):
             dict(getattr(mesh, "shape", {})).get(expert_axis, 1) > 1:
         raise NotImplementedError(
             "expert parallelism over a mesh axis is the distributed slice "
-            "of the port (ROADMAP A7)")
+            "of the port (ROADMAP A7b)")
 
 
 def _gating_rounds(logits, k, C, jitter_key):

@@ -172,9 +172,15 @@ class Optimizer:
         """Pure functional update: returns (new_params, new_state); the
         inputs are not modified.  A missing or None gradient leaves its
         parameter and slots as they are."""
-        lr = _f32(self.get_lr() if lr is None else lr)
         if self._grad_clip is not None:
             grads = self._grad_clip._clip_pytree(grads)
+        return self._apply_update(grads, state, params, lr)
+
+    def _apply_update(self, grads: Dict[str, Any], state: Dict[str, Any],
+                      params: Dict[str, Any], lr=None):
+        """``update`` after the clip: the distributed steps clip over the
+        whole gradient first, then update each rank's shards here."""
+        lr = _f32(self.get_lr() if lr is None else lr)
         step = state["step"] + 1
         new_p, new_s = {}, {}
         for n, p in params.items():

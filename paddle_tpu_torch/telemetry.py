@@ -68,12 +68,12 @@ buckets behind one attribute check.
 
 Differences from the reference (``ROADMAP.md`` §C): program cost
 attribution (``attribute_cost=True``, XLA cost analysis) has no
-counterpart and raises, so ``mfu_summary`` reports no cost recorded;
-``TrainMonitor.aggregate`` is the single-process identity and raises
-under an initialised ``torch.distributed``.  What has no producer in the
-port yet is left out until its producer comes: the AMP scaler feed
-(``observe_scaler``, ``amp`` events), gradient-communication accounting
-(``record_comm``, ``comm`` events), compile-provenance resolution
+counterpart and raises, so ``mfu_summary`` reports no cost recorded.
+``TrainMonitor.aggregate`` reduces through ``distributed.fleet.metrics
+.all_reduce_metrics`` (the identity in a single process).  What has no
+producer in the port yet is left out until its producer comes: the AMP
+scaler feed (``observe_scaler``, ``amp`` events), compile-provenance
+resolution
 (``expected_compiles(provenance_resolver=)``: every miss is ``cold``)
 and per-program costs (``record_cost``, ``compile_event(cost=)``).
 """
@@ -1090,6 +1090,7 @@ class TrainMonitor:
         self._loss_n = 0
         self.last_loss: Optional[float] = None
         self._warned_non_finite = False
+        self._comm_policy: Optional[str] = None
         self.registry.histogram("step_seconds", DEFAULT_TIME_BUCKETS)
         self.registry.histogram("device_blocked_seconds",
                                 DEFAULT_TIME_BUCKETS)
@@ -1237,23 +1238,43 @@ class TrainMonitor:
         return census
 
     # ------------------------------------------------------- aggregation --
+    def record_comm(self, policy: str, pre_bytes: int, post_bytes: int,
+                    **fields):
+        """One gradient-communication accounting event (the
+        ``distributed.grad_comm`` policy layer): ``pre_bytes`` is the
+        fp32-baseline wire estimate for this step's reduction,
+        ``post_bytes`` the active policy's.  Pure host arithmetic from
+        tree shapes — never a device sync."""
+        pre, post = int(pre_bytes), int(post_bytes)
+        reg = self.registry
+        reg.add("comm_steps")
+        reg.add("comm_pre_bytes", pre)
+        reg.add("comm_post_bytes", post)
+        self._comm_policy = policy
+        return self.tracer.emit(
+            "comm", policy=policy, pre_bytes=pre, post_bytes=post,
+            savings=(pre / post if post else None), step=self._step_idx,
+            **fields)
+
     def aggregate(self) -> Dict[str, Any]:
-        """Reduction of the step counters across ranks: global
-        examples/tokens per second over the slowest replica's wall, plus
-        per-replica straggler skew (max replica step-wall over the mean).
-        The single-process identity (skew 1.0); with an initialised
-        ``torch.distributed`` group it raises — multi-rank aggregation is
-        ROADMAP A7 (``ROADMAP.md`` §C)."""
+        """Cross-rank reduction of the step counters (ONE batched
+        collective per reduction op via ``fleet.metrics
+        .all_reduce_metrics``): global examples/tokens per second over the
+        slowest replica's wall, plus per-replica straggler skew (max
+        replica step-wall over the mean).  Identity in a single process
+        (skew 1.0).  Every rank of the default group calls it."""
+        from .distributed import env
+        from .distributed.fleet.metrics.metric import all_reduce_metrics
+
         reg = self.registry
         wall = float(reg.histogram("step_seconds").snapshot()["sum"])
         local = {"steps": float(reg.value("train_steps")),
                  "examples": float(reg.value("train_examples")),
                  "tokens": float(reg.value("train_tokens")),
                  "step_wall_s": wall}
-        _single_process("TrainMonitor.aggregate")
-        sums = dict(local)
-        maxs = {"step_wall_s": wall}
-        world = 1
+        sums = all_reduce_metrics(local, "sum")
+        maxs = all_reduce_metrics({"step_wall_s": wall}, "max")
+        world = max(int(env.get_world_size()), 1)
         wall_max = maxs["step_wall_s"]
         wall_mean = sums["step_wall_s"] / world
         out = {
@@ -1320,8 +1341,25 @@ class TrainMonitor:
                 "opt_bytes": int(reg.value("hbm_opt_bytes")),
                 "other_bytes": int(reg.value("hbm_other_bytes")),
             },
+            "comm": self._comm_summary(),
             "mfu": None,
             "events_dropped": self.tracer.events_dropped,
+        }
+
+    def _comm_summary(self) -> Optional[Dict[str, Any]]:
+        """Aggregate grad-comm accounting (None when no policy reported):
+        total pre/post wire bytes over the run and their ratio."""
+        if self._comm_policy is None:
+            return None
+        reg = self.registry
+        pre = int(reg.value("comm_pre_bytes"))
+        post = int(reg.value("comm_post_bytes"))
+        return {
+            "policy": self._comm_policy,
+            "steps": int(reg.value("comm_steps")),
+            "pre_bytes": pre,
+            "post_bytes": post,
+            "savings": (round(pre / post, 3) if post else None),
         }
 
     # ----------------------------------------------------------- exports --
@@ -1361,21 +1399,10 @@ def _default_batch_info(args) -> Tuple[int, int]:
     return examples, tokens
 
 
-def _single_process(what: str):
-    """Raise when ``torch.distributed`` is initialised: the cross-rank
-    reductions of the reference (``fleet.metrics.all_reduce_metrics``)
-    wait for the distributed slice (ROADMAP A7)."""
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
-        raise NotImplementedError(
-            f"{what} across ranks is not ported yet (ROADMAP A7, "
-            f"ROADMAP.md §C); the single-process identity needs "
-            f"torch.distributed uninitialised")
-
-
 def instrument_train_step(step: Callable, monitor: Optional[TrainMonitor],
                           name: str = "train",
-                          batch_info: Optional[Callable] = None) -> Callable:
+                          batch_info: Optional[Callable] = None,
+                          comm: Optional[Dict[str, Any]] = None) -> Callable:
     """Wrap a train-step callable with per-call TrainMonitor timing.
 
     ``monitor=None`` returns ``step`` UNCHANGED — the builders'
@@ -1388,6 +1415,10 @@ def instrument_train_step(step: Callable, monitor: Optional[TrainMonitor],
     synchronisation and ``train_steps`` counts post-warmup steps.  The
     wrapper is ``functools.wraps`` of the step: it calls the same object
     with the same arguments.
+
+    ``comm``: optional ``{"policy", "pre_bytes", "post_bytes"}`` (a
+    ``grad_comm`` policy's wire estimate for one step's reduction): each
+    steady-state call also records a ``comm`` event.
 
     With an active ``telemetry_memory.MemoryLedger`` the returned state is
     re-registered after every call — one ``is None`` check when no ledger
@@ -1432,6 +1463,8 @@ def instrument_train_step(step: Callable, monitor: Optional[TrainMonitor],
                             else _default_batch_info(args))
         monitor.record_step(time.perf_counter() - t0, trainer=name,
                             examples=examples, tokens=tokens)
+        if comm is not None:
+            monitor.record_comm(**comm)
         return out
 
     return wrapped
@@ -1518,7 +1551,7 @@ def events_to_chrome(events: List[Dict[str, Any]],
             out.append({"name": ev["kind"], "cat": "train", "ph": "X",
                         "pid": _TRAIN_PID, "tid": ev["kind"],
                         "ts": us - dur, "dur": dur, "args": args})
-        elif ev["kind"] in ("watchdog", "hbm", "aggregate"):
+        elif ev["kind"] in ("watchdog", "hbm", "aggregate", "comm"):
             name = ev.get("what", ev["kind"])
             out.append({"name": f"{ev['kind']}:{name}"
                         if "what" in ev else ev["kind"],

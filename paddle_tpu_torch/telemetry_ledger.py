@@ -29,8 +29,8 @@ train_step and sync durations with one attribute check — plus any seam
 that reports through the process-wide active ledger
 (:func:`set_active_ledger` / :func:`current_ledger` / :func:`ledger_span`).
 Everything is zero-cost when no ledger is active: one ``is None`` check
-per seam.  :meth:`RunLedger.aggregate` is the single-process identity
-(multi-rank reduction waits for ROADMAP A7; ``ROADMAP.md`` §C).
+per seam.  :meth:`RunLedger.aggregate` reduces across ranks through
+``distributed.fleet.metrics.all_reduce_metrics``.
 
 The :class:`FlightRecorder` closes the post-mortem gap: installed, it
 dumps the attached tracers' ring buffers, the ledgers' snapshots and
@@ -201,19 +201,21 @@ class RunLedger:
         return self.snapshot()["goodput"]
 
     def aggregate(self) -> Dict[str, Any]:
-        """Roll-up across ranks: global goodput (fleet compute seconds
-        over fleet elapsed seconds) and per-bucket straggler skew (max
-        replica seconds over the mean; 1.0 = perfectly balanced, None =
-        bucket empty everywhere).  The single-process identity; with an
-        initialised ``torch.distributed`` group it raises — multi-rank
-        reduction is ROADMAP A7 (``ROADMAP.md`` §C)."""
-        from .telemetry import _single_process
-        _single_process("RunLedger.aggregate")
+        """Cross-rank roll-up via ``fleet.metrics.all_reduce_metrics`` —
+        ONE batched collective per reduction op (sum + max), never one per
+        bucket: global goodput (fleet compute seconds over fleet elapsed
+        seconds) and per-bucket straggler skew (max replica seconds over
+        the mean; 1.0 = perfectly balanced, None = bucket empty
+        everywhere).  Identity in a single process."""
+        from .distributed import env
+        from .distributed.fleet.metrics.metric import all_reduce_metrics
+
         snap = self.snapshot()
         local = {b: float(snap["buckets_s"][b]) for b in BUCKETS}
         local["elapsed_s"] = float(snap["elapsed_s"])
-        sums = maxs = local
-        world = 1
+        sums = all_reduce_metrics(local, "sum")
+        maxs = all_reduce_metrics(local, "max")
+        world = max(int(env.get_world_size()), 1)
         skew = {}
         for b in BUCKETS:
             mean = sums[b] / world

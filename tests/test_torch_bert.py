@@ -236,8 +236,19 @@ class TestTrainStep:
             torch.testing.assert_close(s1["params"][n],
                                        dict(ta.named_parameters())[n]
                                        .detach(), rtol=1e-5, atol=1e-6)
-        with pytest.raises(NotImplementedError, match="A7"):
-            TB.make_sharded_bert_train_step(TB.BertConfig(**TINY), opt, None)
+        # ported: the sharded-init builder (tests/test_torch_dp_bert.py);
+        # a pipeline degree still waits for ROADMAP A7c
+        step, st = TB.make_sharded_bert_train_step(
+            TB.BertConfig(**TINY), opt, None, device="cpu")
+        assert set(st) == {"params", "opt", "buffers"}
+
+        class TwoStages:
+            def get_pipe_parallel_world_size(self):
+                return 2
+
+        with pytest.raises(NotImplementedError, match="A7c"):
+            TB.make_sharded_bert_train_step(TB.BertConfig(**TINY), opt,
+                                            TwoStages(), device="cpu")
         with pytest.raises(ValueError, match="remat"):
             tm.scan_blocks(torch.zeros(1, 8, 128), remat="dots")
         with pytest.raises(ValueError, match="hidden_act"):

@@ -145,7 +145,7 @@ class TestRunLedgerCore:
         assert [e.get("args") for e in off if e.get("ph") == "C"] == \
             [e["args"] for e in counters]
 
-    def test_aggregate_single_process_identity(self, monkeypatch):
+    def test_aggregate_single_process_identity(self, tmp_path):
         led = RunLedger()
         led.record("compute", 0.4)
         agg = led.aggregate()
@@ -155,10 +155,19 @@ class TestRunLedgerCore:
             0.4 / agg["elapsed_s_max"], rel=1e-6)
         assert agg["straggler_skew"]["compute"] == pytest.approx(1.0)
         assert agg["straggler_skew"]["checkpoint_save"] is None
-        import torch.distributed as dist
-        monkeypatch.setattr(dist, "is_initialized", lambda: True)
-        with pytest.raises(NotImplementedError, match="A7"):
-            led.aggregate()
+        # under an initialised one-rank process group the cross-rank
+        # reduction (ported) gives the same identity
+        import paddle_tpu_torch.distributed as pdist
+        led.close()
+        pdist.init_parallel_env(backend="gloo",
+                                init_method=f"file://{tmp_path}/pg",
+                                rank=0, world_size=1)
+        try:
+            again = led.aggregate()
+        finally:
+            pdist.destroy_process_group()
+        assert again["world"] == 1
+        assert again["buckets_s"]["compute"] == pytest.approx(0.4)
 
 
 class TestActiveLedger:

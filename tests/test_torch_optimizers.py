@@ -173,8 +173,15 @@ def test_clip_matches_reference(clip, form):
 
 
 def test_global_norm_axes_raise():
-    with pytest.raises(NotImplementedError, match="A7"):
-        TC.ClipGradByGlobalNorm(1.0, axes=("mp",))
+    """``axes`` is ported: the squared norm is summed over those axes'
+    groups of the active hybrid group; with none (one process) the clip
+    equals the clip without axes, and nothing raises."""
+    g = {"w": torch.tensor([3.0, 4.0]), "b": torch.tensor([12.0])}
+    plain = TC.ClipGradByGlobalNorm(1.0)._clip_pytree(g)
+    axed = TC.ClipGradByGlobalNorm(1.0, axes=("model",))._clip_pytree(g)
+    for k in g:
+        assert torch.equal(axed[k], plain[k])
+    torch.testing.assert_close(plain["b"], torch.tensor([12.0 / 13.0]))
 
 
 # ----------------------------------------------------------------- eager --

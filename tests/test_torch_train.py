@@ -292,15 +292,22 @@ class TestTrainStep:
         opt = TO.AdamW(3e-4)
 
         class TwoWay:
-            def get_data_parallel_world_size(self):
+            def get_model_parallel_world_size(self):
                 return 2
 
-        for kw, match in ((dict(zero_stage=1), "zero_stage"),
-                          (dict(update_sharding=True), "update_sharding"),
-                          (dict(grad_comm="bf16"), "grad_comm"),
-                          (dict(hcg=TwoWay()), "distributed")):
+        class TwoStages:
+            def get_pipe_parallel_world_size(self):
+                return 2
+
+        # data and sharding degrees, ZeRO, update sharding and grad_comm
+        # are ported (tests/test_torch_dp.py, test_torch_zero.py); model
+        # and pipe degrees wait for ROADMAP A7b/A7c
+        for kw, match in ((dict(hcg=TwoWay()), "A7b"),
+                          (dict(hcg=TwoStages()), "A7c")):
             with pytest.raises(NotImplementedError, match=match):
                 make_gpt_train_step(tm, opt, **kw)
+        with pytest.raises(ValueError, match="pick one"):
+            make_gpt_train_step(tm, opt, zero_stage=1, update_sharding=True)
         # ported since: n_microbatches on one device (the whole batch, as
         # the reference) and donate=False (a fresh state, the model
         # untouched), each giving the plain donated step's loss

@@ -241,11 +241,23 @@ class TestAggregation:
         assert agg["straggler_skew"] == pytest.approx(1.0)
         assert mon.events("aggregate")
 
-    def test_initialised_process_group_raises(self, monkeypatch):
-        import torch.distributed as dist
-        monkeypatch.setattr(dist, "is_initialized", lambda: True)
-        with pytest.raises(NotImplementedError, match="A7"):
-            TrainMonitor().aggregate()
+    def test_initialised_process_group_raises(self, tmp_path):
+        """Multi-rank aggregation is ported (``fleet.metrics
+        .all_reduce_metrics``; tests/test_torch_dist_telemetry.py): under
+        an initialised one-rank gloo group it no longer raises and
+        reduces to the single-process identity."""
+        import paddle_tpu_torch.distributed as pdist
+        pdist.init_parallel_env(backend="gloo",
+                                init_method=f"file://{tmp_path}/pg",
+                                rank=0, world_size=1)
+        try:
+            mon = TrainMonitor()
+            mon.record_step(0.5, examples=4, tokens=64)
+            agg = mon.aggregate()
+        finally:
+            pdist.destroy_process_group()
+        assert agg["world"] == 1 and agg["tokens"] == 64
+        assert agg["straggler_skew"] == pytest.approx(1.0)
 
 
 class TestProfilerStep:
