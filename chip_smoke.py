@@ -325,6 +325,25 @@ Phases (any failure exits non-zero before the result lines):
    rank 1 SIGKILLs itself after the step-4 commit, the pod restarts and
    both ranks resume at step 4 with losses equal to an unkilled launch's
    (each launch under its own timeout).
+23. vision training (``nn``'s conv, BatchNorm, pooling and linear
+   layers, ``F.cross_entropy``, ``vision.models``) through the port's
+   ``make_train_step`` with ``Momentum(momentum=0.9, weight_decay=1e-4)``,
+   as ``bench.py``'s ``_vision_step`` builds it, weights from seed 0: (a)
+   ``bench_resnet50``'s accelerator cell uncut (``resnet50(data_format=
+   "NHWC")``, 1000 classes, B 128, a 224x224x3 bf16 input, fp32
+   parameters, lr 0.1), 2 warm-up steps, a 2-step device profile and 10
+   steps timed with CUDA events: ms/step p50 and range, imgs/s, peak
+   memory, conv1's output dtype (bf16) and the logits' (fp32; the first
+   BatchNorm's fp32 weight promotes everything after the stem), every
+   loss finite and all 106 running statistics moved; (b)
+   ``bench_mnist_lenet``'s (``LeNet``, B 512, 1x28x28 fp32, lr 0.01), 3
+   warm-up and 30 timed steps, the same numbers; (c) card vs CPU from one
+   set of weights: ``resnet50(num_classes=10)`` NHWC at B 8, 64x64 in
+   float64 for one step (the loss, every parameter and every running
+   statistic within 1e-8 of the CPU's, relative to 1 + |value|), and
+   ``LeNet`` at B 64 in fp32 for 3 steps (losses within 1e-4 relative).
+   No kernel of the port runs here: cuDNN convolutions and plain PyTorch
+   pooling and BatchNorm, as XLA computed them for the reference.
 
 Then each kernel is timed at its main path's shapes beside its plain
 version, one PyTorch call computing the same function (``library_ms``,
@@ -5615,6 +5634,211 @@ def phase22(card):
     return launches
 
 
+# ------------------------------------------------------------ phase 23 --
+
+VISION_TOL64 = 1e-8      # card vs CPU in float64 (the CPU tests' tolerance)
+LENET_RTOL = 1e-4        # card vs CPU LeNet losses in fp32
+
+
+def vision_step(model, lr, B, shape, n_classes, dtype, dev):
+    """``bench.py``'s ``_vision_step`` on the port: the port's
+    ``make_train_step`` with ``F.cross_entropy`` and ``Momentum(lr,
+    momentum=0.9, weight_decay=1e-4)``, one batch from seed 0."""
+    from paddle_tpu_torch.jit.functional import make_train_step
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum
+
+    step, state = make_train_step(
+        model, lambda out, y: F.cross_entropy(out, y),
+        Momentum(learning_rate=lr, momentum=0.9, weight_decay=1e-4))
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.standard_normal((B,) + shape)
+                         .astype(np.float32)).to(dev, dtype)
+    y = torch.from_numpy(rng.randint(0, n_classes, (B,))).to(dev)
+    return step, state, x, y
+
+
+CUDNN_KEYS = ("cudnn", "xmma", "implicit_convolve", "dgrad", "wgrad",
+              "gemm", "Nhwc", "Nchw")
+
+
+def say_library_share(prof, busy_ms, n_steps):
+    """The device ms a step in cuDNN's and cuBLAS's kernels (convolutions,
+    their layout transposes, the GEMMs) and in the rest (PyTorch's
+    elementwise and reduction kernels: BatchNorm, ReLU, the residual
+    adds, the loss and the update) of a finished profile."""
+    from torch.autograd import DeviceType
+
+    lib = sum(e.self_device_time_total for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and any(k in e.key for k in CUDNN_KEYS)) / 1e3 / n_steps
+    say(f"  cuDNN/cuBLAS kernels {lib:.3f} ms/step, the rest "
+        f"{busy_ms - lib:.3f} ms/step")
+
+
+def vision_cell(label, model, lr, B, shape, n_classes, dtype, warm, iters,
+                card):
+    """One accelerator cell of ``bench_resnet50``/``bench_mnist_lenet``:
+    ``warm`` warm-up steps (the first records each conv's output dtype
+    and forward FLOPs, for conv1's dtype and the step's bound), a
+    2-step device profile, then ``iters`` steps with CUDA events around
+    each and one pair around them all: ms/step and imgs/s come from the
+    whole window, the p50 and the range from the single steps.  Every
+    loss must be finite and every running statistic must have moved from
+    its initial value."""
+    step, state, x, y = vision_step(model, lr, B, shape, n_classes, dtype,
+                                    "cuda")
+    convs = [m for m in model.modules()
+             if type(m).__name__.startswith("Conv")]
+    init = {n: b.clone() for n, b in model.named_buffers()}
+    dtypes, flops, losses, lr_ = [], {}, [], float(lr)
+
+    def count(mod, inp, out):
+        """A conv's dtype and forward FLOPs (2 a multiply-add)."""
+        dtypes.append(out.dtype)
+        flops[out.dtype] = flops.get(out.dtype, 0) + 2 * out.numel() * \
+            mod.weight[0].numel()
+
+    hooks = [m.register_forward_hook(count) for m in convs]
+    key = np.array([0, 0], np.uint32)
+    try:
+        state, (loss, out) = step(state, key, lr_, [x], [y])
+    finally:
+        for h in hooks:
+            h.remove()
+    # forward, input gradient and weight gradient: 3x the forward's
+    bound = sum(3 * f / PEAK_FLOPS[dt] for dt, f in flops.items()) * 1e3
+    losses.append(loss)
+    for _ in range(warm - 1):
+        state, (loss, out) = step(state, key, lr_, [x], [y])
+        losses.append(loss)
+    prof = start_profile(cpu=False)
+    for _ in range(2):
+        state, (loss, out) = step(state, key, lr_, [x], [y])
+        losses.append(loss)
+    busy = report_profile(prof, 2)
+    say_library_share(prof, busy, 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = []
+    w0, w1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    w0.record()
+    for _ in range(iters):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        state, (loss, out) = step(state, key, lr_, [x], [y])
+        e1.record()
+        events.append((e0, e1))
+        losses.append(loss)
+    w1.record()
+    torch.cuda.synchronize()
+    window = w0.elapsed_time(w1)
+    mean, imgs_s = window / iters, 1e3 * B * iters / window
+    ms = sorted(a.elapsed_time(b) for a, b in events)
+    p50 = float(np.median(ms))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    vals = [v.item() for v in losses]
+    check(all(np.isfinite(vals)), f"phase23 {label}: non-finite loss in "
+          f"{vals}")
+    still = [n for n, b in model.named_buffers() if torch.equal(b, init[n])]
+    check(not still, f"phase23 {label}: {len(still)} of {len(init)} running "
+          f"statistics never moved: {still[:4]}")
+    say(f"phase23 {label}: {mean:.3f} ms/step and {imgs_s:.1f} imgs/s over "
+        f"the {window:.3f} ms window of {iters} steps after {warm} warm-up "
+        f"and 2 profiled (single steps p50 {p50:.3f} ms, range "
+        f"{ms[0]:.3f}-{ms[-1]:.3f}), peak memory "
+        f"{peak:.3f} GiB; first conv output {dtypes[0]}, logits "
+        f"{out.dtype}; the convolutions' 3 x {sum(flops.values()) / 1e9:.3f}"
+        f" GFLOP a step bound it at {bound:.3f} ms on the data sheet's dense "
+        f"peaks ({mean / bound:.2f}x); {len(init)} running statistics all "
+        f"moved; losses "
+        f"{[round(v, 4) for v in vals]}; cudnn.allow_tf32 "
+        f"{torch.backends.cudnn.allow_tf32}, cudnn.benchmark "
+        f"{torch.backends.cudnn.benchmark}; {card}")
+    return dict(ms=mean, imgs_s=imgs_s, peak_gib=peak,
+                first=dtypes[0], logits=out.dtype)
+
+
+def vision_card_vs_cpu(build, B, shape, n_classes, dtype, steps):
+    """The same weights trained ``steps`` steps on the card and on the
+    CPU; returns (card losses, CPU losses, the largest violation of
+    ``|card - cpu| <= tol (1 + |cpu|)`` over every parameter and running
+    statistic, relative to that bound)."""
+    from paddle_tpu_torch.vision.models import params_from_numpy
+
+    cpu = build("cpu").to(dtype)
+    card = params_from_numpy(
+        build("cuda").to(dtype),
+        {n: p.detach().numpy() for n, p in cpu.named_parameters()},
+        {n: b.numpy() for n, b in cpu.named_buffers()})
+    out = []
+    for model, dev in ((card, "cuda"), (cpu, "cpu")):
+        step, state, x, y = vision_step(model, 0.1, B, shape, n_classes,
+                                        dtype, dev)
+        losses = []
+        for _ in range(steps):
+            state, (loss, _) = step(state, np.array([0, 0], np.uint32), 0.1,
+                                    [x], [y])
+            losses.append(loss.item())
+        out.append(losses)
+    tensors = [(n, t, dict(cpu.named_parameters())[n])
+               for n, t in card.named_parameters()]
+    tensors += [(n, t, dict(cpu.named_buffers())[n])
+                for n, t in card.named_buffers()]
+    worst = max(((a.detach().cpu() - b.detach()).abs()
+                 / (1 + b.detach().abs())).max().item()
+                for _, a, b in tensors)
+    return out[0], out[1], worst, len(tensors)
+
+
+def phase23(card):
+    """Vision training on the card: (a) ``bench_resnet50``'s and (b)
+    ``bench_mnist_lenet``'s accelerator cells uncut, (c) card vs CPU."""
+    from paddle_tpu_torch.vision.models import LeNet, resnet50
+
+    t0 = time.perf_counter()
+    torch.manual_seed(0)
+    model = resnet50(data_format="NHWC", device="cuda")
+    r = vision_cell("(a) resnet50 NHWC B 128 224x224x3 bf16 input, fp32 "
+                    "parameters, Momentum 0.1", model, 0.1, 128,
+                    (224, 224, 3), 1000, torch.bfloat16, 2, 10, card)
+    check(r["first"] == torch.bfloat16 and r["logits"] == torch.float32,
+          f"phase23 (a): conv1 {r['first']} and logits {r['logits']}, not "
+          f"bf16 and fp32")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    lenet = LeNet(device="cuda")
+    vision_cell("(b) LeNet B 512 1x28x28 fp32, Momentum 0.01", lenet, 0.01,
+                512, (1, 28, 28), 10, torch.float32, 3, 30, card)
+    del lenet
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def resnet(dev):
+        return resnet50(num_classes=10, data_format="NHWC", device=dev)
+
+    gl, cl, worst, n = vision_card_vs_cpu(resnet, 8, (64, 64, 3), 10,
+                                          torch.float64, 1)
+    rel = abs(gl[0] - cl[0]) / abs(cl[0])
+    say(f"phase23 (c) card vs CPU, resnet50 NHWC 10 classes B 8 64x64 "
+        f"float64, 1 step: loss cuda {gl[0]!r} cpu {cl[0]!r} (rel diff "
+        f"{rel:.3e}); over {n} parameters and running statistics the "
+        f"largest |cuda - cpu| / (1 + |cpu|) is {worst:.3e} (tol "
+        f"{VISION_TOL64:g})")
+    check(rel <= VISION_TOL64 and worst <= VISION_TOL64,
+          f"phase23 (c): resnet50 float64 card vs CPU differ: loss rel "
+          f"{rel}, tensors {worst}")
+    gl, cl, _, _ = vision_card_vs_cpu(
+        lambda dev: LeNet(device=dev), 64, (1, 28, 28), 10, torch.float32, 3)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
+    say(f"phase23 (c) card vs CPU, LeNet B 64 fp32, 3 steps: losses cuda "
+        f"{[round(v, 6) for v in gl]} cpu {[round(v, 6) for v in cl]}, max "
+        f"rel diff {rel:.3e} (tol {LENET_RTOL:g})")
+    check(rel <= LENET_RTOL, f"phase23 (c): LeNet losses differ by {rel}")
+    say(f"phase23 took {time.perf_counter() - t0:.1f} s on {card}")
+
+
 def bytes_ops_bound(nbytes, flops):
     """(ms, "bytes"|"operations") of the larger bound; fp32 flops."""
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -5843,6 +6067,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     ckpt_launches = phase22(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase23(card)
 
     ms, plain_ms, library_ms, bound_ms, bound_by, _ = t = time_pack(main_pack)
     say_pack_time("bf16 pools at the phase-3 shapes", t, card)

@@ -119,6 +119,20 @@ above (the flash kernels run in every supervised step):
   ``distributed.store`` (the TCP store over ``csrc/kv_store.cpp``, host
   C++ built with ``g++``), ``distributed.fleet.elastic``,
   ``distributed.launch`` and ``ckpt_fsck``
+
+and vision training on one device, with no kernel of its own (cuDNN
+convolutions and plain PyTorch pooling and BatchNorm, as XLA computed
+them for the reference):
+
+- ``nn.initializer``, ``nn.layer`` (``Layer`` over ``torch.nn.Module``,
+  ``building``; ``Linear``, ``Flatten``, ``Identity``, ``ReLU``,
+  ``Conv1D/2D/3D``, the ``BatchNorm`` family, max, average and adaptive
+  average pooling, ``Sequential``, ``LayerList``), ``nn.functional``
+  (``linear``, ``relu``, ``conv1d/2d/3d``, the poolings, ``batch_norm``,
+  ``cross_entropy``), ``tensor.manipulation.flatten``
+- ``vision.models`` (the ResNet family, ``LeNet``,
+  ``params_from_numpy``); the functional steps now train the state's
+  buffers (``distributed.spmd``'s one-device step)
 """
 
 import torch

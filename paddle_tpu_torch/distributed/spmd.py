@@ -83,16 +83,19 @@ def _trainable(params0, layer):
 
 
 def _loss_and_grads(loss_of, leaves, trainable, holder, batch, scale=None,
-                    accumulate_steps: int = 1):
+                    accumulate_steps: int = 1, buffers=None):
     """(detached loss, {name: grad}) of ``loss_of(leaves, *batch)``.  With
-    ``holder`` (the layer) whose own parameters are not ``leaves``,
+    ``holder`` (the layer) whose own parameters are not ``leaves``, or
+    with ``buffers`` (named tensors to stand in for the layer's buffers),
     ``torch.func.functional_call`` swaps them in for the forward and the
-    backward (a recomputed block reads the same tensors).  ``scale``
+    backward (a recomputed block reads the same tensors; a layer that
+    updates a buffer in place updates the given one).  ``scale``
     multiplies the loss before the backward (ZeRO's loss scale).  With
     ``accumulate_steps`` the rows split into that many micro-batches,
     whose losses and gradients are averaged."""
-    own = holder is None or all(
-        leaves.get(n) is p for n, p in holder.layer.named_parameters())
+    own = holder is None or (buffers is None and all(
+        leaves.get(n) is p for n, p in holder.layer.named_parameters()))
+    swapped = {**leaves, **(buffers or {})}
 
     def run(*b):
         loss = loss_of(leaves, *b)
@@ -104,7 +107,7 @@ def _loss_and_grads(loss_of, leaves, trainable, holder, batch, scale=None,
         if own:
             return run(*b)
         return torch.func.functional_call(
-            holder, {f"layer.{n}": t for n, t in leaves.items()},
+            holder, {f"layer.{n}": t for n, t in swapped.items()},
             (lambda: run(*b),))
 
     if accumulate_steps <= 1:
@@ -465,9 +468,13 @@ def _make_local_step(loss_of, params0, optimizer, layer, donate, policy,
     def kept(state, lr, *batch):
         leaves = {n: p.detach().requires_grad_(n in trainable)
                   for n, p in state["params"].items()}
+        # the forward reads and advances clones of the given buffers
+        buffers = {n: b.detach().clone()
+                   for n, b in state["buffers"].items()}
         loss, g = _loss_and_grads(
             loss_of, leaves, trainable, holder, batch,
-            scale=None if scaler is None else state["scaler"]["scale"])
+            scale=None if scaler is None else state["scaler"]["scale"],
+            buffers=buffers)
         with torch.no_grad():
             new_p, new_opt, rest = update(state, leaves, g, lr)
             if new_p is None:
@@ -479,7 +486,7 @@ def _make_local_step(loss_of, params0, optimizer, layer, donate, policy,
                          n: {k: (v.clone() if v is old[n].get(k) else v)
                              for k, v in s.items()}
                          for n, s in new_opt["slots"].items()}},
-                     "buffers": dict(state["buffers"])}
+                     "buffers": buffers}
             for k in ("comm_e", "scaler", "acc", "acc_count"):
                 if k in state:
                     fresh[k] = rest.get(k, state[k])

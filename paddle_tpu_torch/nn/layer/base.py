@@ -1,0 +1,89 @@
+"""The layer base class (counterpart of ``paddle_tpu/nn/layer/base.py``).
+
+A ``Layer`` is a ``torch.nn.Module`` with the reference's
+``create_parameter`` and ``_dtype``.  The reference's functional bridge
+(``raw_state``/``bind``) has no counterpart: the port's steps swap
+parameters and buffers in with ``torch.func.functional_call``.
+
+Parameters and buffers are made on the device of the innermost
+:func:`building` scope, or on ``cuda`` outside one (raising without a
+card), and drawn from torch's default generator there: ``torch.manual_seed``
+plays the part of ``paddle.seed``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+
+import torch
+
+from ..initializer import (Constant, Initializer, XavierUniform,
+                           get_global_initializer, to_dtype)
+
+_DEVICE = contextvars.ContextVar("paddle_tpu_torch_build_device",
+                                 default=None)
+
+
+def build_device() -> torch.device:
+    """The device a layer made now puts its parameters and buffers on:
+    the innermost :func:`building` scope's, else ``cuda`` (raises without
+    a card)."""
+    dev = _DEVICE.get()
+    if dev is None:
+        from ... import resolve_device
+        dev = resolve_device(None)
+    return dev
+
+
+@contextlib.contextmanager
+def building(device=None):
+    """Build layers on ``device`` (default: the enclosing scope's, else
+    ``cuda``, which raises without a card)."""
+    from ... import resolve_device
+
+    dev = build_device() if device is None else resolve_device(device)
+    token = _DEVICE.set(dev)
+    try:
+        yield dev
+    finally:
+        _DEVICE.reset(token)
+
+
+class Layer(torch.nn.Module):
+    """Base class of the port's layers."""
+
+    def __init__(self, name_scope=None, dtype=None):
+        super().__init__()
+        self._dtype = (to_dtype(dtype) if dtype is not None
+                       else torch.get_default_dtype())
+
+    def add_sublayer(self, name, sublayer):
+        self.add_module(str(name), sublayer)
+        return sublayer
+
+    def create_parameter(self, shape, attr=None, dtype=None,
+                         is_bias: bool = False, default_initializer=None):
+        """A parameter of ``shape`` drawn by, in order: ``attr`` (an
+        ``Initializer``, or an object with an ``initializer``), the
+        global initializer, ``default_initializer``, then ``Constant(0)``
+        for a bias or ``XavierUniform`` for a weight.  ``attr.trainable``
+        False makes it need no gradient."""
+        dtype = to_dtype(dtype) if dtype is not None else self._dtype
+        init = attr if isinstance(attr, Initializer) else \
+            getattr(attr, "initializer", None)
+        if init is None:
+            glob = get_global_initializer()
+            if glob is not None:
+                init = glob[1] if is_bias else glob[0]
+            if init is None:
+                init = default_initializer
+            if init is None:
+                init = Constant(0.0) if is_bias else XavierUniform()
+        with torch.device(build_device()):
+            data = init(shape, dtype)
+        return torch.nn.Parameter(
+            data, requires_grad=bool(getattr(attr, "trainable", True)))
+
+
+__all__ = ["Layer", "build_device", "building"]
