@@ -344,6 +344,29 @@ Phases (any failure exits non-zero before the result lines):
    ``LeNet`` at B 64 in fp32 for 3 steps (losses within 1e-4 relative).
    No kernel of the port runs here: cuDNN convolutions and plain PyTorch
    pooling and BatchNorm, as XLA computed them for the reference.
+24. the other eight vision families with dropout drawn from the step key
+   (``core.rng``'s threefry, ``nn.Dropout``, ``vision.models``), through
+   phase 23's step: (a) each at its published width and 1000 classes
+   (``alexnet``, ``vgg16``, ``squeezenet1_1``, ``mobilenet_v2``,
+   ``googlenet``, ``inception_v3``, ``densenet121``,
+   ``shufflenet_v2_x1_0``), B 32, a 224x224x3 fp32 input (299x299x3 for
+   InceptionV3), lr 0.1 with BatchNorm and 0.01 without (AlexNet, VGG,
+   SqueezeNet; ``bench.py``'s rates for its resnet50 and LeNet cells),
+   step keys ``fold_in_step_key(base, t)``: 2
+   warm-up steps, a 2-step device profile (the cuDNN/cuBLAS share) and 5
+   steps timed with CUDA events: ms/step, imgs/s, peak memory, the
+   convolutions' bound and the ratio to it, every loss finite and every
+   running statistic moved; (b) card vs CPU from one set of weights, each
+   family with 10 classes at B 4, 64x64 (112x112 for InceptionV3: at
+   80x80 its 1x1 maps leave its last BatchNorms 4 values), float64, 2
+   steps with the same step keys, so the dropout masks are compared
+   too: losses, parameters and running statistics within 1e-8 relative
+   to 1 + |value|; (c) one ``F.dropout`` of a (4096, 4096) fp32 tensor
+   at p 0.5 under one key: the card's keep-mask bit-equal to the CPU's,
+   its keep rate within 1e-3 of 0.5, and its time (CUDA events over 10
+   calls).  No kernel of the port runs here: the masks are plain int64
+   PyTorch arithmetic (the reference drew them through XLA's threefry,
+   not a Pallas kernel).
 
 Then each kernel is timed at its main path's shapes beside its plain
 version, one PyTorch call computing the same function (``library_ms``,
@@ -5676,8 +5699,13 @@ def say_library_share(prof, busy_ms, n_steps):
         f"{busy_ms - lib:.3f} ms/step")
 
 
+# the base of the vision cells' step keys: step t takes fold_in_step_key(
+# VISION_KEY, t), so that phase 24's dropouts draw
+VISION_KEY = np.array([0, 24], np.uint32)
+
+
 def vision_cell(label, model, lr, B, shape, n_classes, dtype, warm, iters,
-                card):
+                card, phase="phase23"):
     """One accelerator cell of ``bench_resnet50``/``bench_mnist_lenet``:
     ``warm`` warm-up steps (the first records each conv's output dtype
     and forward FLOPs, for conv1's dtype and the step's bound), a
@@ -5685,11 +5713,14 @@ def vision_cell(label, model, lr, B, shape, n_classes, dtype, warm, iters,
     each and one pair around them all: ms/step and imgs/s come from the
     whole window, the p50 and the range from the single steps.  Every
     loss must be finite and every running statistic must have moved from
-    its initial value."""
+    its initial value.  Step ``t`` takes the key ``fold_in_step_key(
+    VISION_KEY, t)``."""
+    from paddle_tpu_torch.jit.functional import fold_in_step_key
+
     step, state, x, y = vision_step(model, lr, B, shape, n_classes, dtype,
                                     "cuda")
     convs = [m for m in model.modules()
-             if type(m).__name__.startswith("Conv")]
+             if type(m).__name__ in ("Conv1D", "Conv2D", "Conv3D")]
     init = {n: b.clone() for n, b in model.named_buffers()}
     dtypes, flops, losses, lr_ = [], {}, [], float(lr)
 
@@ -5700,9 +5731,10 @@ def vision_cell(label, model, lr, B, shape, n_classes, dtype, warm, iters,
             mod.weight[0].numel()
 
     hooks = [m.register_forward_hook(count) for m in convs]
-    key = np.array([0, 0], np.uint32)
+    keys = (fold_in_step_key(VISION_KEY, t)
+            for t in range(warm + 2 + iters))
     try:
-        state, (loss, out) = step(state, key, lr_, [x], [y])
+        state, (loss, out) = step(state, next(keys), lr_, [x], [y])
     finally:
         for h in hooks:
             h.remove()
@@ -5710,11 +5742,11 @@ def vision_cell(label, model, lr, B, shape, n_classes, dtype, warm, iters,
     bound = sum(3 * f / PEAK_FLOPS[dt] for dt, f in flops.items()) * 1e3
     losses.append(loss)
     for _ in range(warm - 1):
-        state, (loss, out) = step(state, key, lr_, [x], [y])
+        state, (loss, out) = step(state, next(keys), lr_, [x], [y])
         losses.append(loss)
     prof = start_profile(cpu=False)
     for _ in range(2):
-        state, (loss, out) = step(state, key, lr_, [x], [y])
+        state, (loss, out) = step(state, next(keys), lr_, [x], [y])
         losses.append(loss)
     busy = report_profile(prof, 2)
     say_library_share(prof, busy, 2)
@@ -5726,7 +5758,7 @@ def vision_cell(label, model, lr, B, shape, n_classes, dtype, warm, iters,
     for _ in range(iters):
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         e0.record()
-        state, (loss, out) = step(state, key, lr_, [x], [y])
+        state, (loss, out) = step(state, next(keys), lr_, [x], [y])
         e1.record()
         events.append((e0, e1))
         losses.append(loss)
@@ -5738,12 +5770,12 @@ def vision_cell(label, model, lr, B, shape, n_classes, dtype, warm, iters,
     p50 = float(np.median(ms))
     peak = torch.cuda.max_memory_allocated() / 2**30
     vals = [v.item() for v in losses]
-    check(all(np.isfinite(vals)), f"phase23 {label}: non-finite loss in "
+    check(all(np.isfinite(vals)), f"{phase} {label}: non-finite loss in "
           f"{vals}")
     still = [n for n, b in model.named_buffers() if torch.equal(b, init[n])]
-    check(not still, f"phase23 {label}: {len(still)} of {len(init)} running "
+    check(not still, f"{phase} {label}: {len(still)} of {len(init)} running "
           f"statistics never moved: {still[:4]}")
-    say(f"phase23 {label}: {mean:.3f} ms/step and {imgs_s:.1f} imgs/s over "
+    say(f"{phase} {label}: {mean:.3f} ms/step and {imgs_s:.1f} imgs/s over "
         f"the {window:.3f} ms window of {iters} steps after {warm} warm-up "
         f"and 2 profiled (single steps p50 {p50:.3f} ms, range "
         f"{ms[0]:.3f}-{ms[-1]:.3f}), peak memory "
@@ -5755,15 +5787,17 @@ def vision_cell(label, model, lr, B, shape, n_classes, dtype, warm, iters,
         f"{[round(v, 4) for v in vals]}; cudnn.allow_tf32 "
         f"{torch.backends.cudnn.allow_tf32}, cudnn.benchmark "
         f"{torch.backends.cudnn.benchmark}; {card}")
-    return dict(ms=mean, imgs_s=imgs_s, peak_gib=peak,
+    return dict(ms=mean, imgs_s=imgs_s, peak_gib=peak, bound_ms=bound,
                 first=dtypes[0], logits=out.dtype)
 
 
-def vision_card_vs_cpu(build, B, shape, n_classes, dtype, steps):
-    """The same weights trained ``steps`` steps on the card and on the
-    CPU; returns (card losses, CPU losses, the largest violation of
-    ``|card - cpu| <= tol (1 + |cpu|)`` over every parameter and running
-    statistic, relative to that bound)."""
+def vision_card_vs_cpu(build, B, shape, n_classes, dtype, steps, lr=0.1):
+    """The same weights trained ``steps`` steps at ``lr`` on the card and
+    on the CPU, step ``t`` under the key ``fold_in_step_key(VISION_KEY,
+    t)``; returns (card losses, CPU losses, the
+    largest ``|card - cpu| / (1 + |cpu|)`` over every parameter and
+    running statistic, their count)."""
+    from paddle_tpu_torch.jit.functional import fold_in_step_key
     from paddle_tpu_torch.vision.models import params_from_numpy
 
     cpu = build("cpu").to(dtype)
@@ -5773,12 +5807,12 @@ def vision_card_vs_cpu(build, B, shape, n_classes, dtype, steps):
         {n: b.numpy() for n, b in cpu.named_buffers()})
     out = []
     for model, dev in ((card, "cuda"), (cpu, "cpu")):
-        step, state, x, y = vision_step(model, 0.1, B, shape, n_classes,
+        step, state, x, y = vision_step(model, lr, B, shape, n_classes,
                                         dtype, dev)
         losses = []
-        for _ in range(steps):
-            state, (loss, _) = step(state, np.array([0, 0], np.uint32), 0.1,
-                                    [x], [y])
+        for t in range(steps):
+            state, (loss, _) = step(state, fold_in_step_key(VISION_KEY, t),
+                                    lr, [x], [y])
             losses.append(loss.item())
         out.append(losses)
     tensors = [(n, t, dict(cpu.named_parameters())[n])
@@ -5837,6 +5871,114 @@ def phase23(card):
         f"rel diff {rel:.3e} (tol {LENET_RTOL:g})")
     check(rel <= LENET_RTOL, f"phase23 (c): LeNet losses differ by {rel}")
     say(f"phase23 took {time.perf_counter() - t0:.1f} s on {card}")
+
+
+# ------------------------------------------------------------ phase 24 --
+
+# (constructor, input side, lr): each family's default (published) widths;
+# bench.py's rule for the rate: 0.1 with BatchNorm (its resnet50 cell),
+# 0.01 without (its LeNet cell; AlexNet and VGG diverge at 0.1)
+FAMILY_CELLS = [("alexnet", 224, 0.01), ("vgg16", 224, 0.01),
+                ("squeezenet1_1", 224, 0.01), ("mobilenet_v2", 224, 0.1),
+                ("googlenet", 224, 0.1), ("inception_v3", 299, 0.1),
+                ("densenet121", 224, 0.1), ("shufflenet_v2_x1_0", 224, 0.1)]
+FAMILY_B = 32
+MASK_SHAPE, MASK_P, MASK_RATE_TOL = (4096, 4096), 0.5, 1e-3
+
+
+def phase24_mask(card):
+    """(c): one dropout's keep-mask on the card against the CPU's, its
+    keep rate, and its time."""
+    from paddle_tpu_torch.core import rng
+    from paddle_tpu_torch.nn import functional as F
+
+    key = np.array([0xDEADBEEF, 0x12345678], np.uint32)
+    masks = []
+    for dev in ("cuda", "cpu"):
+        x = torch.ones(MASK_SHAPE, device=dev)
+        with rng.rng_scope(key):
+            masks.append((F.dropout(x, MASK_P) != 0).cpu())
+    same = torch.equal(*masks)
+    rate = masks[0].float().mean().item()
+    x = torch.ones(MASK_SHAPE, device="cuda")
+    with rng.rng_scope(key):
+        for _ in range(3):
+            F.dropout(x, MASK_P)
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        for _ in range(10):
+            F.dropout(x, MASK_P)
+        e1.record()
+        torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1) / 10
+    bound = 2 * 4 * x.numel() / HBM_BYTES_PER_S * 1e3
+    verdict = "equals" if same else "DIFFERS FROM"
+    say(f"phase24 (c) F.dropout of a {MASK_SHAPE} fp32 tensor at p "
+        f"{MASK_P}: the card's keep-mask {verdict} the CPU's bit for bit, "
+        f"keep rate {rate:.6f} (1 - p {1 - MASK_P}, tol {MASK_RATE_TOL:g});"
+        f" {ms:.3f} ms a call (10 calls, CUDA events; threefry2x32 as plain "
+        f"int64 PyTorch ops), {ms / bound:.0f}x the {bound:.4f} ms that "
+        f"reading and writing the tensor once would take; {card}")
+    check(same, "phase24 (c): the card's dropout mask differs from the CPU's")
+    check(abs(rate - (1 - MASK_P)) <= MASK_RATE_TOL,
+          f"phase24 (c): keep rate {rate} is not within {MASK_RATE_TOL} of "
+          f"{1 - MASK_P}")
+    return ms
+
+
+def phase24(card):
+    """The other eight vision families: (a) each at its published width
+    on the card, (b) card vs CPU in float64 with dropout drawn, (c) the
+    dropout mask on the card."""
+    from paddle_tpu_torch.vision import models as tm
+
+    t0 = time.perf_counter()
+    cells = {}
+    for name, side, lr in FAMILY_CELLS:
+        torch.manual_seed(0)
+        model = getattr(tm, name)(device="cuda")
+        cells[name] = vision_cell(
+            f"(a) {name} B {FAMILY_B} {side}x{side}x3 fp32, 1000 classes, "
+            f"Momentum {lr}, dropout keyed by fold_in_step_key", model, lr,
+            FAMILY_B, (3, side, side), 1000, torch.float32, 2, 5, card,
+            phase="phase24")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    t_a = time.perf_counter() - t0
+    for name, side, lr in FAMILY_CELLS:
+        # InceptionV3 at 80x80 ends in 1x1 maps: its last BatchNorms would
+        # normalise over the batch's 4 values and amplify the card's and
+        # the CPU's float64 reduction orders past the bound; 112x112
+        # leaves 2x2 maps (16 values)
+        small = 112 if side == 299 else 64
+
+        def build(dev, name=name):
+            torch.manual_seed(0)
+            return getattr(tm, name)(num_classes=10, device=dev)
+
+        gl, cl, worst, n = vision_card_vs_cpu(
+            build, 4, (3, small, small), 10, torch.float64, 2, lr=lr)
+        rel = max(abs(a - b) / (1 + abs(b)) for a, b in zip(gl, cl))
+        say(f"phase24 (b) card vs CPU, {name} 10 classes B 4 "
+            f"{small}x{small} float64, lr {lr}, 2 steps, dropout keyed: "
+            f"losses cuda "
+            f"{gl!r} cpu {cl!r}; the largest |cuda - cpu| / (1 + |cpu|) is "
+            f"{rel:.3e} over the losses and {worst:.3e} over {n} parameters "
+            f"and running statistics (tol {VISION_TOL64:g})")
+        check(rel <= VISION_TOL64 and worst <= VISION_TOL64,
+              f"phase24 (b): {name} float64 card vs CPU differ: losses "
+              f"{rel}, tensors {worst}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    mask_ms = phase24_mask(card)
+    say("phase24 summary (a): " + "; ".join(
+        f"{n} {r['ms']:.3f} ms/step {r['imgs_s']:.1f} imgs/s peak "
+        f"{r['peak_gib']:.2f} GiB conv bound {r['bound_ms']:.3f} ms "
+        f"({r['ms'] / r['bound_ms']:.2f}x)" for n, r in cells.items())
+        + f"; dropout mask {mask_ms:.3f} ms; (a) took {t_a:.1f} s; {card}")
+    say(f"phase24 took {time.perf_counter() - t0:.1f} s on {card}")
 
 
 def bytes_ops_bound(nbytes, flops):
@@ -6070,6 +6212,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     phase23(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase24(card)
 
     ms, plain_ms, library_ms, bound_ms, bound_by, _ = t = time_pack(main_pack)
     say_pack_time("bf16 pools at the phase-3 shapes", t, card)

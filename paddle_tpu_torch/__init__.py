@@ -133,9 +133,23 @@ them for the reference):
 - ``vision.models`` (the ResNet family, ``LeNet``,
   ``params_from_numpy``); the functional steps now train the state's
   buffers (``distributed.spmd``'s one-device step)
+
+and the rest of the vision zoo with dropout, again with no kernel (the
+reference drew its masks through XLA's threefry, not a Pallas kernel):
+
+- ``core.rng`` (threefry2x32 over int64 tensors, bit-equal to
+  ``jax.random``; streams, ``rng_scope``), ``nn`` (the dropouts,
+  ``ReLU6``, ``Swish``), ``tensor.manipulation`` (``concat``,
+  ``reshape``, ``transpose``, at the top level too); the train steps
+  draw their masks from the step key
+- ``vision.models``: AlexNet, VGG, SqueezeNet, MobileNet V1/V2,
+  GoogLeNet, InceptionV3, DenseNet, ShuffleNetV2
 """
 
 import torch
+
+from .tensor.manipulation import (  # noqa: F401
+    concat, flatten, reshape, transpose)
 
 # Submodules imported on first attribute access, as the reference's
 # package does for its fleet modules.

@@ -72,6 +72,7 @@ def flag(name: str) -> Any:
     return _REGISTRY[name].value
 
 
+define_flag("FLAGS_seed", 0, "Global random seed (core.rng.seed sets it).")
 define_flag("FLAGS_use_fused_ln", False,
             "Route BERT's LN + residual + dropout epilogue through the fused "
             "kernel (ops/fused.py); off by default, as in the reference.")

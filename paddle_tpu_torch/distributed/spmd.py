@@ -32,6 +32,7 @@ from typing import Dict
 import torch
 from torch import nn
 
+from ..core import rng
 from .sharding_rules import (batch_spec, build_param_specs,
                              build_state_shardings, gather_full, local_shard,
                              replicated_spec, spec_shards)
@@ -82,6 +83,15 @@ def _trainable(params0, layer):
     return [n for n, p in params0.items() if p.requires_grad]
 
 
+def _grad(obj, tensors):
+    """The gradients of ``obj`` by ``tensors``: zeros for one the loss
+    does not read (GoogLeNet's aux heads under a loss of its main
+    logits), as ``jax.grad`` gives."""
+    grads = torch.autograd.grad(obj, tensors, allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g
+                 for t, g in zip(tensors, grads))
+
+
 def _loss_and_grads(loss_of, leaves, trainable, holder, batch, scale=None,
                     accumulate_steps: int = 1, buffers=None):
     """(detached loss, {name: grad}) of ``loss_of(leaves, *batch)``.  With
@@ -100,8 +110,7 @@ def _loss_and_grads(loss_of, leaves, trainable, holder, batch, scale=None,
     def run(*b):
         loss = loss_of(leaves, *b)
         obj = loss if scale is None else loss * scale
-        return loss.detach(), torch.autograd.grad(
-            obj, [leaves[n] for n in trainable])
+        return loss.detach(), _grad(obj, [leaves[n] for n in trainable])
 
     def call(b):
         if own:
@@ -115,7 +124,8 @@ def _loss_and_grads(loss_of, leaves, trainable, holder, batch, scale=None,
         return loss, dict(zip(trainable, g))
     loss, acc = None, None
     for m in range(accumulate_steps):
-        lm, gm = call(_rows(batch, accumulate_steps, m))
+        with rng.fold_scope(m):      # the reference's fold_in(key, m)
+            lm, gm = call(_rows(batch, accumulate_steps, m))
         loss = lm if loss is None else loss + lm
         acc = list(gm) if acc is None else [a + b for a, b in zip(acc, gm)]
     return loss / accumulate_steps, {n: a / accumulate_steps
@@ -363,7 +373,19 @@ def _make_mesh_step(loss_of, params0, optimizer, mesh, layer, p_specs,
                 sc["found_inf"] = found_inf
         return state, _global_loss(loss, group, R)
 
-    return step, state0
+    if _is_solo(mesh):
+        return step, state0
+
+    def refusing(state, lr, *batch):
+        with rng.refuse_draws(_MESH_DRAWS):
+            return step(state, lr, *batch)
+
+    return refusing, state0
+
+
+_MESH_DRAWS = ("a random draw (dropout) inside a train step over more than "
+               "one rank waits for ROADMAP A7b: a rank's mask of its rows "
+               "would not equal the reference's mask of the global batch")
 
 
 # --------------------------------------------------------------------------
@@ -442,8 +464,8 @@ def _make_local_step(loss_of, params0, optimizer, layer, donate, policy,
         params = state["params"]
         loss = loss_of(params, *batch)
         obj = loss if scaler is None else loss * state["scaler"]["scale"]
-        grads = dict(zip(trainable, torch.autograd.grad(
-            obj, [params[n] for n in trainable])))
+        grads = dict(zip(trainable, _grad(obj, [params[n]
+                                                for n in trainable])))
         with torch.no_grad():
             new_p, new_opt, rest = update(state, params, grads, lr)
             if new_p is not None:
@@ -540,11 +562,14 @@ def make_spmd_train_step(layer, loss_fn, optimizer, hcg, zero_stage: int = 0,
     ``step(state, key, lr, inputs, labels) -> (state, loss)`` with
     ``loss = loss_fn(layer(*inputs), *labels)`` the global mean.  Every
     rank passes the global ``inputs``/``labels`` lists and takes its rows.
-    ``key`` is accepted and not read (the reference seeds its layers'
-    dropout with it).  Returns ``(step, state0, state_specs)``: the state
-    ``{"params", "opt", "buffers"}`` (``comm_e`` with a stateful
-    ``grad_comm``) holds this rank's shards; ``state_specs`` is their
+    On one rank the forward runs under ``rng_scope(key)`` (a micro-batch
+    ``m`` of ``accumulate_steps`` under ``fold_in(key, m)``), as in the
+    reference; over more ranks a draw raises (ROADMAP A7b).  Returns
+    ``(step, state0, state_specs)``: the state ``{"params", "opt",
+    "buffers"}`` (``comm_e`` with a stateful ``grad_comm``) holds this
+    rank's shards; ``state_specs`` is their
     spec tree (the reference returns ``NamedSharding``s of it)."""
+    from ..jit.functional import _make_loss_of
     from ..telemetry import instrument_train_step
     from .grad_comm import comm_info, resolve_policy
 
@@ -552,11 +577,7 @@ def make_spmd_train_step(layer, loss_fn, optimizer, hcg, zero_stage: int = 0,
     mesh = hcg.mesh
     params0 = dict(layer.named_parameters())
 
-    def loss_of(params, inputs, labels):
-        out = layer(*inputs)
-        main = out[0] if isinstance(out, (list, tuple)) else out
-        return loss_fn(main, *labels)
-
+    loss_of = _make_loss_of(layer, loss_fn, None, [])
     p_specs = build_param_specs(params0, mesh, layer, zero_stage)
     s_specs = _slot_specs(p_specs, params0, mesh, zero_stage)
     raw, state0 = _make_mesh_step(loss_of, params0, optimizer, mesh, layer,
@@ -568,7 +589,8 @@ def make_spmd_train_step(layer, loss_fn, optimizer, hcg, zero_stage: int = 0,
         specs["comm_e"] = replicated_spec()
 
     def step(state, key, lr, inputs, labels):
-        return raw(state, lr, list(inputs), list(labels))
+        with rng.rng_scope(key):
+            return raw(state, lr, list(inputs), list(labels))
 
     return instrument_train_step(step, monitor, "spmd",
                                  comm=comm_info(params0, policy)), \

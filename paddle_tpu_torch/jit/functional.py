@@ -12,8 +12,10 @@ them), the tree ``train_resilience.TrainSupervisor`` checkpoints.
 A key is its raw ``uint32[2]`` key data (numpy): torch has no typed keys.
 :func:`fold_in_step_key` is threefry2x32's ``fold_in``, bit for bit
 ``jax.random.fold_in``, so a run resumed in either package derives the
-same step keys.  The port's layers draw no randomness from the key, so the
-steps accept it and do not read it.
+same step keys.  Each step runs its forward under ``core.rng.rng_scope``
+of its key, as the reference's ``functionalize`` does: the n-th dropout
+draw of a step is ``fold_in(key, n)``, so the same key gives the
+reference's masks.
 
 ``warm_train_step`` (the AOT seam) and a ``GradScaler`` object wait for
 ROADMAP A8; ``scaler_cfg`` is read as far as the reference's
@@ -24,29 +26,12 @@ from __future__ import annotations
 
 import contextlib
 
-import numpy as np
 import torch
 
-_M32 = 0xFFFFFFFF
-_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+from ..core import rng
 
 
-def _threefry2x32(k0: int, k1: int, x0: int, x1: int):
-    """One block of Threefry-2x32, 20 rounds (Salmon et al. 2011), as
-    ``jax._src.prng.threefry_2x32`` computes it."""
-    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
-    x0, x1 = (x0 + ks[0]) & _M32, (x1 + ks[1]) & _M32
-    for i in range(5):
-        for r in _ROTATIONS[i % 2]:
-            x0 = (x0 + x1) & _M32
-            x1 = ((x1 << r) | (x1 >> (32 - r))) & _M32
-            x1 ^= x0
-        x0 = (x0 + ks[(i + 1) % 3]) & _M32
-        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
-    return x0, x1
-
-
-def fold_in_step_key(base_key, step: int) -> np.ndarray:
+def fold_in_step_key(base_key, step: int):
     """THE per-step RNG derivation: ``key_t = fold_in(base_key, t)``
     (reference ``jit/functional.py:322``).
 
@@ -57,14 +42,7 @@ def fold_in_step_key(base_key, step: int) -> np.ndarray:
     list); the result is the ``uint32[2]`` key data of
     ``jax.random.fold_in(base_key, step)``: threefry2x32 of the key over
     the block ``(0, step)``."""
-    if hasattr(base_key, "detach"):
-        base_key = base_key.detach().cpu().numpy()
-    k = np.asarray(base_key).astype(np.uint32).reshape(-1)
-    if k.shape != (2,):
-        raise ValueError(f"a key is uint32[2] key data, got shape "
-                         f"{tuple(np.shape(base_key))}")
-    return np.array(_threefry2x32(int(k[0]), int(k[1]), 0,
-                                  int(step) & _M32), dtype=np.uint32)
+    return rng.fold_in(base_key, step)
 
 
 def _scaler_knobs(scaler_cfg):
@@ -116,7 +94,8 @@ def _build(layer, loss_fn, optimizer, donate, trace_ctx, grad_comm,
     state0["buffers"] = dict(layer.named_buffers())
 
     def step(state, key, lr, inputs, labels):
-        state, loss = inner(state, lr, list(inputs), list(labels))
+        with rng.rng_scope(key):
+            state, loss = inner(state, lr, list(inputs), list(labels))
         return state, (loss, out_box[0].detach())
 
     return step, state0, params0, policy

@@ -1,9 +1,10 @@
 """``paddle_tpu_torch.nn.functional`` (counterpart of
-``paddle_tpu/nn/functional``): what the ResNet family and LeNet train
-through (ROADMAP A8a); the rest waits for ROADMAP A8b."""
+``paddle_tpu/nn/functional``): what the vision families train through
+(ROADMAP A8a); the rest waits for ROADMAP A8b."""
 
-from .activation import relu, relu6, softmax  # noqa: F401
-from .common import linear  # noqa: F401
+from .activation import relu, relu6, silu, softmax, swish  # noqa: F401
+from .common import (  # noqa: F401
+    alpha_dropout, dropout, dropout2d, dropout3d, linear)
 from .conv import conv1d, conv2d, conv3d  # noqa: F401
 from .loss import cross_entropy  # noqa: F401
 from .norm import batch_norm  # noqa: F401

@@ -1,9 +1,10 @@
 """``paddle_tpu_torch.nn.layer`` (counterpart of ``paddle_tpu/nn/layer``):
-the layers the ResNet family and LeNet build (ROADMAP A8a)."""
+the layers the vision families build (ROADMAP A8a)."""
 
-from .activation import ReLU  # noqa: F401
+from .activation import ReLU, ReLU6, Swish  # noqa: F401
 from .base import Layer, building  # noqa: F401
-from .common import Flatten, Identity, Linear  # noqa: F401
+from .common import (  # noqa: F401
+    AlphaDropout, Dropout, Dropout2D, Dropout3D, Flatten, Identity, Linear)
 from .containers import LayerList, Sequential  # noqa: F401
 from .conv import Conv1D, Conv2D, Conv3D  # noqa: F401
 from .norm import BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D  # noqa: F401

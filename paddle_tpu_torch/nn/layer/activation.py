@@ -1,5 +1,5 @@
 """Activation layers (counterpart of ``paddle_tpu/nn/layer/activation.py``):
-the ``_simple`` family, ``ReLU`` for now."""
+the ``_simple`` family: ``ReLU``, ``ReLU6`` and ``Swish`` for now."""
 
 from __future__ import annotations
 
@@ -28,5 +28,7 @@ def _simple(name, fn_name=None, **defaults):
 
 
 ReLU = _simple("ReLU", "relu")
+ReLU6 = _simple("ReLU6", "relu6")
+Swish = _simple("Swish", "swish")
 
-__all__ = ["ReLU"]
+__all__ = ["ReLU", "ReLU6", "Swish"]

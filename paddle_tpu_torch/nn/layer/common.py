@@ -1,5 +1,6 @@
 """Common layers (counterpart of ``paddle_tpu/nn/layer/common.py``):
-``Identity``, ``Linear`` and ``Flatten``."""
+``Identity``, ``Linear``, ``Flatten`` and the dropouts (each draws its
+mask from ``core.rng``: see ``nn.functional.common``)."""
 
 from __future__ import annotations
 
@@ -52,4 +53,44 @@ class Flatten(Layer):
         return flatten(input, self.start_axis, self.stop_axis)
 
 
-__all__ = ["Identity", "Linear", "Flatten"]
+class Dropout(Layer):
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None):
+        super().__init__()
+        self.p, self.axis, self.mode = p, axis, mode
+
+    def forward(self, input):
+        return F.dropout(input, self.p, self.axis, self.training, self.mode)
+
+    def extra_repr(self):
+        return f"p={self.p}, axis={self.axis}, mode={self.mode}"
+
+
+class Dropout2D(Layer):
+    def __init__(self, p=0.5, data_format="NCHW", name=None):
+        super().__init__()
+        self.p, self.data_format = p, data_format
+
+    def forward(self, input):
+        return F.dropout2d(input, self.p, self.training, self.data_format)
+
+
+class Dropout3D(Layer):
+    def __init__(self, p=0.5, data_format="NCDHW", name=None):
+        super().__init__()
+        self.p, self.data_format = p, data_format
+
+    def forward(self, input):
+        return F.dropout3d(input, self.p, self.training, self.data_format)
+
+
+class AlphaDropout(Layer):
+    def __init__(self, p=0.5, name=None):
+        super().__init__()
+        self.p = p
+
+    def forward(self, input):
+        return F.alpha_dropout(input, self.p, self.training)
+
+
+__all__ = ["Identity", "Linear", "Flatten", "Dropout", "Dropout2D",
+           "Dropout3D", "AlphaDropout"]

@@ -1,4 +1,5 @@
 """``paddle_tpu_torch.tensor`` (counterpart of ``paddle_tpu/tensor``):
-``manipulation.flatten`` only, until the rest is ported (ROADMAP A8b)."""
+``manipulation``'s ``reshape``, ``flatten``, ``transpose`` and ``concat``
+only, until the rest is ported (ROADMAP A8b)."""
 
-from .manipulation import flatten  # noqa: F401
+from .manipulation import concat, flatten, reshape, transpose  # noqa: F401
