@@ -2598,9 +2598,15 @@ def drive(eng, reqs, arrivals=None, window=None, ticks=None):
     return wall, [got.get(r) for r in rids], step
 
 
+#: phase 16's depth: the first 2 of gpt2-small's 12 layers (cut to make
+#: room for phase 25; the 12-layer phase took 166.6 s on an H100)
+PROGRAM_LAYERS = 2
+
+
 def phase16():
     """The engines' programs as CUDA graphs at full width (gpt2-small
-    bf16, seed 0): the ragged engine and the speculative one (self-draft,
+    bf16, seed 0, its first ``PROGRAM_LAYERS`` layers): the ragged engine
+    and the speculative one (self-draft,
     K 4) at phase 3's settings and traffic, the bucketed paged engine and
     the contiguous one at phase 12's, each warmed and served with graphs
     (the default) and then under ``disable_graphs()``.  Per mode and
@@ -2625,6 +2631,7 @@ def phase16():
         PagedContinuousBatchingEngine, RaggedPagedContinuousBatchingEngine)
 
     model, breqs, max_len, _ = bucketed_serve()    # phase 3's model too
+    model = truncated_model(model, PROGRAM_LAYERS)
     L, K = model.config.num_layers, SPEC_K
     rreqs = serving_traffic(model.config.vocab_size)
     ragged_kw = dict(max_slots=8, max_len=512, block_size=16,
@@ -2718,8 +2725,9 @@ def phase16():
                                f"eager", a, b, reqs[i][0], buckets, model)
                    for i, (a, b) in enumerate(zip(g[0], e[0])))
         results[name] = (g, e, same)
-        say(f"phase16 {name}: graphs {g[1]:.1f} tokens/s at {g[2]:.3f} ms a "
-            f"step against eager {e[1]:.1f} tokens/s at {e[2]:.3f} ms "
+        say(f"phase16 {name} ({L} layers): graphs {g[1]:.1f} tokens/s at "
+            f"{g[2]:.3f} ms a step against eager {e[1]:.1f} tokens/s at "
+            f"{e[2]:.3f} ms "
             f"({g[1] / e[1]:.2f}x); streams equal {same}/{len(reqs)}")
     gr, gs = results["ragged"][0], results["speculative"][0]
     say(f"phase16 speculative against plain ragged, both with graphs: "
@@ -5164,9 +5172,11 @@ def phase21(card):
 
 # ------------------------------------------------------------ phase 22 --
 
-# bench_gpt_train_resilience's accelerator branch (bench.py:1448-1456)
+# bench_gpt_train_resilience's accelerator branch (bench.py:1448-1456),
+# its 12 layers cut to 2 to make room for phase 25 (the whole cell ran
+# ~105 s of phase 22's 215.9 s on an H100)
 RESIL_CFG = dict(vocab_size=50304, max_position_embeddings=1024,
-                 compute_dtype="bfloat16")
+                 compute_dtype="bfloat16", num_layers=2)
 RESIL_B, RESIL_L = 16, 1024
 NUM_STEPS, SAVE_EVERY, FAIL_AT, PREEMPT_AT = 24, 6, 9, 15
 RESIL_KEY = np.array([0, 0], np.uint32)        # jax.random.PRNGKey(0)'s data
@@ -5332,7 +5342,8 @@ def phase22a(card, root):
         "tokens_per_sec": B * L * NUM_STEPS / chaos_wall,
         "oracle_wall_s": oracle_wall, "chaos_wall_s": chaos_wall,
         "save": parts, "state_bytes": state_bytes, "steps": calls[0]}
-    say(f"phase22a bench_gpt_train_resilience (gpt2s 12 layers, B {B}, L "
+    say(f"phase22a bench_gpt_train_resilience (gpt2s {cfg.num_layers} "
+        f"layers, B {B}, L "
         f"{L}, bf16, fp32 params, AdamW; {NUM_STEPS} steps, save every "
         f"{SAVE_EVERY}, alloc_fail at {FAIL_AT}, torn write of save 1, "
         f"preempted at {PREEMPT_AT}) on {card}: resumed losses equal the "
@@ -5981,6 +5992,251 @@ def phase24(card):
     say(f"phase24 took {time.perf_counter() - t0:.1f} s on {card}")
 
 
+# ------------------------------------------------------------ phase 25 --
+
+TP_ARMS = (("mp 2", {"mp_degree": 2}, None),
+           ("sep 2 ring", {"sep_degree": 2}, "ring"),
+           ("sep 2 Ulysses", {"sep_degree": 2}, "ulysses"))
+TP_B, TP_L, TP_STEPS, TP_LR = 8, 1024, 4, 3e-4
+
+
+def tp_model(mode=None):
+    """gpt2s (12 layers, bf16, fp32 parameters) from seed 0 on the card."""
+    from paddle_tpu_torch.models.gpt import GPTModel, gpt_preset
+
+    cfg = gpt_preset("gpt2-small", sequence_parallel=mode, **DP_WIDTH)
+    return GPTModel(cfg, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0))
+
+
+def gpt_preset_layers():
+    from paddle_tpu_torch.models.gpt import gpt_preset
+
+    return gpt_preset("gpt2-small", **DP_WIDTH).num_layers
+
+
+def tp_batch():
+    rng = np.random.RandomState(25)
+    return [torch.from_numpy(rng.randint(0, DP_WIDTH["vocab_size"],
+                                         (TP_B, TP_L))).cuda()
+            for _ in range(2)]
+
+
+def rank25(rank, tmp):
+    """One of phase 25's two ranks: each arm's 4 steps (the first a
+    warm-up), the time in gloo's collectives apart from the rest, the
+    flash launches of the three timed steps and of the warm-up, the bytes
+    the state holds, and the weights' move against the one-rank step."""
+    import datetime
+    import pickle
+
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed.sharding_rules import local_shard
+    from paddle_tpu_torch.distributed.zero import per_device_state_bytes
+    from paddle_tpu_torch.models.gpt import make_gpt_train_step
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_parallel_env(backend="gloo", init_method=f"file://{tmp}/rdv",
+                           rank=rank, world_size=2,
+                           timeout=datetime.timedelta(seconds=600))
+    check("jax" not in sys.modules, "phase25: a rank imported jax")
+    # gloo sums bf16 all-reduces of CUDA tensors (no cast on the way)
+    t = torch.full((5,), 1.0 + 0.5 * rank, dtype=torch.bfloat16,
+                   device="cuda")
+    C.all_reduce(t)
+    out = {"bf16_sum": t.tolist()}
+    gloo = [0.0, 0]
+    run = C._run
+
+    def timed(name, group, inputs, outputs, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(name, group, inputs, outputs, fn)
+        torch.cuda.synchronize()
+        gloo[0] += time.perf_counter() - t0
+        gloo[1] += 1
+
+    C._run = timed
+    x, y = tp_batch()
+    out["layers"] = gpt_preset_layers()
+    p0 = torch.load(f"{tmp}/p0.pt")
+    solo = torch.load(f"{tmp}/solo.pt")
+    for name, hc, mode in TP_ARMS:
+        model = tp_model(mode)
+        step, state = make_gpt_train_step(model, AdamW(TP_LR),
+                                          fleet_hcg(**hc), remat=False)
+        mesh = step.layout.mesh
+        specs = step.layout.specs["params"]
+        staged0 = dict(C.HOST_STAGING)
+        zero_counts()
+        gloo[:] = [0.0, 0]
+        state, loss = step(state, 0, TP_LR, x, y)
+        losses = [loss.item()]
+        warm = flash_counts()[:3]
+        zero_counts()
+        gloo[:] = [0.0, 0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(1, TP_STEPS):
+            state, loss = step(state, i, TP_LR, x, y)
+            losses.append(loss.item())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = TP_STEPS - 1
+        got = {k: v for k, v in state["params"].items()}
+        move = delta_errors(got, p0, solo, lambda k, full: local_shard(
+            full.cuda(), specs[k], mesh))
+        out[name] = dict(
+            losses=losses, ms=1e3 * wall / n, gloo_ms=1e3 * gloo[0] / n,
+            calls=gloo[1] / n, launches=flash_counts()[:3], warm=warm,
+            param_bytes=sum(v.numel() * v.element_size()
+                            for v in state["params"].values()),
+            slot_bytes=per_device_state_bytes(state), move=move,
+            staged={k: C.HOST_STAGING[k] - staged0[k] for k in staged0},
+            split=sorted(k for k, s in specs.items() if any(
+                e is not None for e in s)))
+        del model, step, state, got, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+    C._run = run
+    with open(f"{tmp}/rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase25_flash(card):
+    """B2-B4 at the arms' shape (nh/2 = 6 heads of a rank: mp's heads,
+    and Ulysses' over the whole sequence) against their plain versions."""
+    from paddle_tpu_torch.ops import attention as A
+
+    dt, causal, D = torch.bfloat16, True, 64
+    q, k, v, do, km = flash_inputs(TP_B, TP_L, 6, D, dt, False, seed=25)
+    scale = 1.0 / D ** 0.5
+    qk = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = A._FlashAttention.apply(*qk, km, FLASH_SEED, causal, scale, 0.0)
+    grads = torch.autograd.grad(out, qk, do)
+    qp = [t.clone().requires_grad_() for t in (q, k, v)]
+    out_p, _ = A.flash_fwd_ref(*qp, km, FLASH_SEED, causal, scale, 0.0)
+    grads_p = torch.autograd.grad(out_p, qp, do)
+    torch.cuda.synchronize()
+    err = (out.float() - out_p.float()).abs().max().item()
+    gerr = [rel_err(a, b) for a, b in zip(grads, grads_p)]
+    check(err <= TOL[dt] and max(gerr) <= GRAD_TOL[dt],
+          f"phase25 flash at B {TP_B}, L {TP_L}, 6 heads: O err {err}, "
+          f"grads {gerr}")
+    say(f"phase25 flash kernels at a rank's shape (B {TP_B}, L {TP_L}, 6 "
+        f"heads, hd 64, bf16, causal) on {card}: O max abs err {err:.3e} "
+        f"(tol {TOL[dt]}), dq/dk/dv err / max|grad| "
+        + "/".join(f"{e:.3e}" for e in gerr) + f" (tol {GRAD_TOL[dt]})")
+
+
+def phase25(card):
+    """Tensor and sequence parallelism at gpt2s width (12 layers, B 8, L
+    1024, bf16): the one-rank step here, then mp 2, sep 2 ring and sep 2
+    Ulysses on two gloo ranks sharing the card, 4 steps each, held
+    against it.  Returns the ranks' flash launches (fwd, dq, dkv)."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+    from paddle_tpu_torch.distributed.zero import per_device_state_bytes
+    from paddle_tpu_torch.models.gpt import make_gpt_train_step
+    from paddle_tpu_torch.optimizer import AdamW
+
+    t0 = time.perf_counter()
+    phase25_flash(card)
+    tmp = tempfile.mkdtemp(prefix="phase25_")
+    model = tp_model()
+    torch.save({n: p.detach().cpu() for n, p in model.named_parameters()},
+               f"{tmp}/p0.pt")
+    step, state = make_gpt_train_step(model, AdamW(TP_LR), remat=False)
+    x, y = tp_batch()
+    solo = []
+    for i in range(TP_STEPS):
+        state, loss = step(state, i, TP_LR, x, y)
+        solo.append(loss.item())
+        if i == 0:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    solo_ms = 1e3 * (time.perf_counter() - t1) / (TP_STEPS - 1)
+    solo_sizes = {n: p.numel() * p.element_size()
+                  for n, p in state["params"].items()}
+    solo_params = sum(solo_sizes.values())
+    solo_slots = per_device_state_bytes(state)
+    torch.save({n: p.detach().cpu() for n, p in model.named_parameters()},
+               f"{tmp}/solo.pt")
+    del model, step, state, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("phase25: two ranks share this one card over gloo (NCCL refuses two "
+        "ranks on one device, so NCCL's arm of the new collectives cannot "
+        "run here); every hop goes through the host")
+    t_ranks = time.perf_counter()
+    mp.start_processes(rank25, args=(tmp,), nprocs=2, join=True,
+                       start_method="spawn")
+    t_ranks = time.perf_counter() - t_ranks
+    ranks = []
+    for r in range(2):
+        with open(f"{tmp}/rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    for r, rk in enumerate(ranks):
+        check(rk["bf16_sum"] == [2.5] * 5,
+              f"phase25 rank {r}: gloo's bf16 all-reduce gave "
+              f"{rk['bf16_sum']}, not 1.0 + 1.5")
+    launches = [0, 0, 0]
+    for name, hc, mode in TP_ARMS:
+        flash = mode != "ring"          # ring's blocks are plain PyTorch
+        for r, rk in enumerate(ranks):
+            a = rk[name]
+            rel = a["rel"] = max(abs(p - q) / abs(q)
+                                 for p, q in zip(a["losses"], solo))
+            check(np.isfinite(a["losses"]).all() and rel <= BF16_RTOL,
+                  f"phase25 {name} rank {r}: losses {a['losses']} vs one "
+                  f"rank {solo} ({rel:.3e} > {BF16_RTOL})")
+            check(a["move"][0] <= DELTA_TOL,
+                  f"phase25 {name} rank {r}: the weights' move {a['move']} "
+                  f"from one rank's (tol {DELTA_TOL})")
+            nl = rk["layers"]
+            want = [nl * (TP_STEPS - 1) if flash else 0] * 3
+            check(a["launches"] == want
+                  and a["warm"] == [nl if flash else 0] * 3,
+                  f"phase25 {name} rank {r}: flash launches {a['launches']} "
+                  f"(warm-up {a['warm']}), want {want}")
+            launches = [s + u + w for s, u, w in
+                        zip(launches, a["launches"], a["warm"])]
+        a = ranks[0][name]
+        held = sum(b // 2 if n in a["split"] else b
+                   for n, b in solo_sizes.items())
+        check(a["param_bytes"] == held and a["slot_bytes"] == 2 * held
+              and (a["split"] != []) == ("mp_degree" in hc),
+              f"phase25 {name}: a rank holds {a['param_bytes']} bytes of "
+              f"parameters and {a['slot_bytes']} of slots, want {held} and "
+              f"{2 * held} (split {a['split']})")
+        say(f"phase25 {name} (gpt2s {ranks[0]['layers']} layers, B {TP_B}, "
+            f"L {TP_L}, bf16, AdamW, two gloo ranks) on {card}: losses "
+            f"{[round(v, 5) for v in a['losses']]} vs one rank "
+            f"{[round(v, 5) for v in solo]} (within {a['rel']:.3e} "
+            f"relative, tol {BF16_RTOL}); ms/step rank 0 {a['ms']:.3f} = "
+            f"gloo {a['gloo_ms']:.3f} ({a['calls']:.0f} collectives) + "
+            f"compute {a['ms'] - a['gloo_ms']:.3f} (rank 1 "
+            f"{ranks[1][name]['ms']:.3f} = {ranks[1][name]['gloo_ms']:.3f} "
+            f"+ {ranks[1][name]['ms'] - ranks[1][name]['gloo_ms']:.3f}); one "
+            f"rank {solo_ms:.3f} ms/step; flash fwd/dq/dkv a rank over 3 "
+            f"steps {a['launches']} and {ranks[1][name]['launches']}; bytes a "
+            f"rank holds: parameters {a['param_bytes']}, AdamW slots "
+            f"{a['slot_bytes']} (one rank {solo_params} and {solo_slots}; "
+            f"split {a['split'] or 'none'}); pinned host copies "
+            f"{a['staged']['copies']} ({a['staged']['bytes'] / 2**30:.3f} "
+            f"GiB); weights' move vs one rank's {a['move'][0]:.3e} by norm")
+    say(f"phase25 took {time.perf_counter() - t0:.1f} s on {card} (the ranks "
+        f"{t_ranks:.1f} s); flash launches fwd/dq/dkv on the two ranks "
+        f"{launches}")
+    return launches
+
+
 def bytes_ops_bound(nbytes, flops):
     """(ms, "bytes"|"operations") of the larger bound; fp32 flops."""
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -6157,6 +6413,15 @@ def card_line():
 
 
 T_START = time.perf_counter()
+_LAP = [T_START]
+
+
+def lap(name):
+    """Print the time since the last lap: one phase's wall time."""
+    now = time.perf_counter()
+    say(f"lap {name}: {now - _LAP[0]:.1f} s ({now - T_START:.1f} s since "
+        f"the start)")
+    _LAP[0] = now
 
 
 def main():
@@ -6175,46 +6440,74 @@ def main():
         f"device {torch.cuda.get_device_name(0)}")
 
     phase0()
+    lap("phase0")
 
     main_pack, err, int8_pack, decode_pack = phase1()
-
+    lap("phase1")
     phase2()
+    lap("phase2")
     launches, plain_streams, plain_streams8 = phase3()
+    lap("phase3")
     phase4()
+    lap("phase4")
     phase5()
+    lap("phase5")
     flash_launches = phase6()
+    lap("phase6")
     adamw_launches = phase7()
+    lap("phase7")
     phase8()
+    lap("phase8")
     ln_launches = phase9()
+    lap("phase9")
     decode_err = phase10()
+    lap("phase10")
     phase11()
+    lap("phase11")
     decode_launches = phase12()
+    lap("phase12")
     phase13()
+    lap("phase13")
     phase14(plain_streams, plain_streams8)
+    lap("phase14")
     phase15()
+    lap("phase15")
     gc.collect()
     phase16()
+    lap("phase16")
     gc.collect()
     gen_launches = phase17(card)
+    lap("phase17")
     gc.collect()
     tel_launches = phase18(card)
+    lap("phase18")
     gc.collect()
     moe_launches = phase19(card)
+    lap("phase19")
     gc.collect()
     torch.cuda.empty_cache()
     fleet_launches = phase20(card)
+    lap("phase20")
     gc.collect()
     torch.cuda.empty_cache()
     dp_launches = phase21(card)
+    lap("phase21")
     gc.collect()
     torch.cuda.empty_cache()
     ckpt_launches = phase22(card)
+    lap("phase22")
     gc.collect()
     torch.cuda.empty_cache()
     phase23(card)
+    lap("phase23")
     gc.collect()
     torch.cuda.empty_cache()
     phase24(card)
+    lap("phase24")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_launches = phase25(card)
+    lap("phase25")
 
     ms, plain_ms, library_ms, bound_ms, bound_by, _ = t = time_pack(main_pack)
     say_pack_time("bf16 pools at the phase-3 shapes", t, card)
@@ -6271,7 +6564,8 @@ def main():
         f"paged decode {fleet_launches[2]}; phase 21's data parallelism: "
         f"flash fwd/dq/dkv {dp_launches[:3]}, fused LN fwd/bwd "
         f"{dp_launches[3:]}; phase 22's crash-consistent training: flash "
-        f"fwd/dq/dkv {ckpt_launches}")
+        f"fwd/dq/dkv {ckpt_launches}; phase 25's tensor and sequence "
+        f"parallelism: flash fwd/dq/dkv {tp_launches}")
     say(card)                        # the nvidia-smi name,power.limit line
     pack = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
@@ -6280,10 +6574,10 @@ def main():
                        launches + gen_launches[0] + tel_launches[0]
                        + moe_launches[0] + fleet_launches[0], pack)]
     flash_launches = tuple(
-        a + b + c + d + e for a, b, c, d, e in zip(
+        a + b + c + d + e + f for a, b, c, d, e, f in zip(
             (flash_launches[0] + gen_launches[2] + fleet_launches[1],
              *flash_launches[1:]), tel_launches[2], moe_launches[1:4],
-            dp_launches[:3], ckpt_launches))
+            dp_launches[:3], ckpt_launches, tp_launches))
     ln_launches = tuple(a + b for a, b in zip(ln_launches, dp_launches[3:]))
     rows += [kernel_row(name, FLASH_SOURCE, FLASH_REPLACES[name], n, r)
              for (name, r), n in zip(flash.items(), flash_launches)]

@@ -21,8 +21,11 @@ reference's bit for bit:
   draw is ``fold_in(key, n)``, so the masks of a train step are a pure
   function of its step key and the draw order.
 
-``RNGSequenceTracker`` and ``get_rng_state_tracker`` wait for ROADMAP A7b
-(tensor-parallel layers).
+- ``RNGSequenceTracker`` (``get_rng_state_tracker``): named seeds whose
+  ``rng_state(name)`` scope draws from that stream (eager) or from
+  ``fold_in(key, hash(name))`` of the step key (inside ``rng_scope``),
+  the reference's tracker; the tensor-parallel layers' local and global
+  seeds live in it (``parallel_layers/random.py``).
 """
 
 from __future__ import annotations
@@ -267,6 +270,54 @@ def in_rng_scope() -> bool:
     return _scope.key is not None
 
 
+class RNGSequenceTracker:
+    """Model-parallel RNG state tracker (reference ``core/rng.py``
+    ``RNGSequenceTracker``; Paddle's parallel_layers/random.py).
+
+    ``rng_state(name)`` scopes draws to the named stream, so a stream
+    seeded per rank (the local seed) draws differently on each model rank
+    and the global one alike; inside ``rng_scope(key)`` the stream name is
+    folded into the scope's key, so the draws stay a pure function of the
+    step key."""
+
+    def __init__(self):
+        self.seeds = {}
+
+    def add(self, name: str, seed_value: int):
+        if name in self.seeds and self.seeds[name] != seed_value:
+            raise ValueError(f"seed for {name} already set to "
+                             f"{self.seeds[name]}")
+        self.seeds[name] = seed_value
+        add_stream(name, seed_value)
+
+    @contextlib.contextmanager
+    def rng_state(self, name: str = "global_seed"):
+        if name not in self.seeds and name not in _streams:
+            self.add(name, int(flags.flag("FLAGS_seed"))
+                     + abs(hash(name)) % (2**31))
+        if _scope.key is not None:
+            with _scoped(fold_in(_scope.key, abs(hash(name)) % (2**31)),
+                         None):
+                yield
+            return
+        if _scope.refusal is not None:
+            yield                       # a draw inside still raises
+            return
+        saved = _streams.get("global") or get_stream("global")
+        _streams["global"] = get_stream(name)
+        try:
+            yield
+        finally:
+            _streams["global"] = saved
+
+
+_tracker = RNGSequenceTracker()
+
+
+def get_rng_state_tracker() -> RNGSequenceTracker:
+    return _tracker
+
+
 def get_rng_state():
     """``paddle.get_rng_state``-ish: the key data of every stream."""
     return {name: s.key.copy() for name, s in _streams.items()}
@@ -280,4 +331,5 @@ def set_rng_state(state) -> None:
 __all__ = ["make_key", "fold_in", "split", "random_bits", "uniform",
            "bernoulli", "seed", "get_stream", "add_stream", "rng_scope",
            "fold_scope", "refuse_draws", "next_key", "in_rng_scope",
-           "get_rng_state", "set_rng_state"]
+           "RNGSequenceTracker", "get_rng_state_tracker", "get_rng_state",
+           "set_rng_state"]

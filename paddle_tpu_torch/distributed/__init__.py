@@ -1,15 +1,17 @@
 """``paddle_tpu_torch.distributed`` (counterpart of
 ``paddle_tpu/distributed``; reference: python/paddle/distributed/).
 
-Data-parallel training on ``torch.distributed``, one process per rank:
-the collective API, the hybrid group and ``fleet``, the gradient
-communication policies, ZeRO stages 1-3 with offload, weight-update
-sharding and the data × sharding train steps.  Crash-consistent training
-rides ``checkpoint`` (sharded saves, resumes on another layout),
-``store`` (the TCP store), ``fleet.elastic`` (membership) and ``launch``
+Hybrid-parallel training on ``torch.distributed``, one process per rank:
+the collective API (with the autograd collectives of tensor and sequence
+parallelism), the hybrid group and ``fleet`` (the tensor-parallel layers
+in ``fleet.meta_parallel``), the gradient communication policies, ZeRO
+stages 1-3 with offload, weight-update sharding and the data × sharding
+× sep × model train steps.  Crash-consistent training rides
+``checkpoint`` (sharded saves, resumes on another layout), ``store``
+(the TCP store), ``fleet.elastic`` (membership) and ``launch``
 (``python -m paddle_tpu_torch.distributed.launch``).  ``localsgd``,
-``dgc``, ``auto_parallel`` and the pipeline engine wait for their slices
-(ROADMAP A7b, A7c).
+``dgc``, ``auto_parallel``, the expert axis and the pipeline engine wait
+for their slices (ROADMAP A7b, A7c).
 """
 
 from . import checkpoint, env, fleet  # noqa: F401

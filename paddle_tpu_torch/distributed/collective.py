@@ -12,11 +12,22 @@ in a single process with no process group.
 Under the gloo backend a CUDA tensor goes through an explicit pinned host
 copy for the collectives gloo does not run on CUDA tensors
 (``_GLOO_HOST_STAGED``; counted in ``HOST_STAGING``).  NCCL never stages.
+
+The tensor- and sequence-parallel layers differentiate through the
+autograd collectives below: Megatron's pair (:func:`copy_to_group`,
+identity forward and all-reduce backward; :func:`reduce_from_group`,
+all-reduce forward and identity backward), :func:`gather_along` (an
+all-gather along a dim, reduce-scatter backward), :func:`split_along`
+(its transpose), :func:`all_to_all_along` (an all-to-all between two
+dims, its inverse backward) and :func:`ring_exchange` (send to the next
+rank of a group, receive from the previous one).
 """
 
 from __future__ import annotations
 
 from typing import List, Optional
+
+import torch
 
 from . import env
 
@@ -27,7 +38,7 @@ _groups = {}
 #: operands are copied through pinned host buffers (never under NCCL)
 _GLOO_HOST_STAGED = frozenset({
     "all_gather", "reduce_scatter", "all_to_all", "scatter", "send",
-    "recv"})
+    "recv", "ring_exchange"})
 
 #: host staging done under gloo: copies (each direction counts) and bytes
 HOST_STAGING = {"copies": 0, "bytes": 0}
@@ -466,10 +477,168 @@ def broadcast_object_list(object_list, src=0, group=None):
     return object_list
 
 
+# --------------------------------------------------------------------------
+# autograd collectives (the tensor- and sequence-parallel layers)
+# --------------------------------------------------------------------------
+
+def _reduced(x, group, op=ReduceOp.SUM):
+    """A new tensor: ``x`` all-reduced over ``group``."""
+    out = x.clone(memory_format=torch.contiguous_format)
+    return all_reduce(out, op, group)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduced(g, ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _reduced(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_dim(g, ctx.dim, ctx.group), None, None
+
+
+class _SplitAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        n = x.shape[dim] // group.nranks
+        return x.narrow(dim, group.rank * n, n).clone(
+            memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g, ctx.dim, ctx.group), None, None
+
+
+def _a2a(x, split_dim, concat_dim, group):
+    """``x`` split into ``group.nranks`` blocks along ``split_dim``, block
+    r sent to the group's r-th rank; the blocks received concatenated
+    along ``concat_dim`` in group order."""
+    R = group.nranks
+    shape = list(x.shape)
+    n = shape[split_dim] // R
+    blocks = x.reshape(shape[:split_dim] + [R, n] + shape[split_dim + 1:])
+    rows = all_to_all_rows(blocks.movedim(split_dim, 0), group)
+    # rows[r]: rank r's block, of x's shape but n along split_dim
+    got = rows.movedim(0, concat_dim)
+    shape[split_dim] = n
+    shape[concat_dim] *= R
+    return got.reshape(shape)
+
+
+class _AllToAllAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, group):
+        ctx.dims, ctx.group = (split_dim, concat_dim), group
+        return _a2a(x, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return _a2a(g, concat_dim, split_dim, ctx.group), None, None, None
+
+
+def copy_to_group(x, group: Group):
+    """Identity forward, the gradient all-reduced over ``group``
+    backward: the input of a column-parallel product (Megatron's f)."""
+    return x if _solo(group) else _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x, group: Group):
+    """``x`` all-reduced over ``group`` forward, identity backward: the
+    output of a row-parallel product (Megatron's g)."""
+    return x if _solo(group) else _ReduceFromGroup.apply(x, group)
+
+
+def gather_along(x, dim: int, group: Group):
+    """The ranks' ``x`` concatenated along ``dim`` in group order; the
+    gradient is reduce-scattered back along ``dim``."""
+    return x if _solo(group) else _GatherAlong.apply(x, dim, group)
+
+
+def split_along(x, dim: int, group: Group):
+    """This rank's block of ``x`` along ``dim``; the gradient is
+    all-gathered back."""
+    return x if _solo(group) else _SplitAlong.apply(x, dim, group)
+
+
+def all_to_all_along(x, split_dim: int, concat_dim: int, group: Group):
+    """``x`` split along ``split_dim`` over the group's ranks, each rank's
+    blocks concatenated along ``concat_dim`` (Ulysses' sequence → heads
+    swap); the gradient takes the inverse exchange."""
+    if _solo(group):
+        return x
+    return _AllToAllAlong.apply(x, split_dim, concat_dim, group)
+
+
+def ring_exchange(tensors, group: Group):
+    """Each tensor of ``tensors`` sent to the group's next rank; returns
+    the tensors received from the previous one (one round of a ring, all
+    sends and receives posted at once).  Not differentiable: the ring's
+    own backward sends its gradients the same way."""
+    import torch.distributed as dist
+    if _solo(group):
+        return list(tensors)
+    me = group.rank
+    nxt = group.ranks[(me + 1) % group.nranks]
+    prv = group.ranks[(me - 1) % group.nranks]
+    ins = [t.contiguous() for t in tensors]
+    outs = [torch.empty_like(t) for t in ins]
+
+    def fn(i, o):
+        reqs = [dist.isend(t, nxt, group=group.pg) for t in i]
+        reqs += [dist.irecv(t, prv, group=group.pg) for t in o]
+        for r in reqs:
+            r.wait()
+    _run("ring_exchange", group, ins, outs, fn)
+    return outs
+
+
 def split(x, size, operation, axis=0, num_partitions=1, gather_out=True,
           weight_attr=None, bias_attr=None, name=None):
     """Megatron-style sharded Embedding/Linear (reference collective.py
-    ``split``): the tensor-parallel layers wait for ROADMAP A7b."""
-    raise NotImplementedError(
-        "collective.split builds tensor-parallel layers (mp_layers): "
-        "ROADMAP A7b")
+    ``split``): builds the tensor-parallel layer for ``operation``
+    (``"embedding"``, or ``"linear"`` row-parallel on ``axis`` 0 and
+    column-parallel on 1) over the model group of the active hybrid group
+    and applies it to ``x``."""
+    from .fleet.meta_parallel.parallel_layers.mp_layers import (
+        ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
+    if operation == "embedding":
+        layer = VocabParallelEmbedding(size[0], size[1],
+                                       weight_attr=weight_attr)
+        return layer(x)
+    if operation == "linear":
+        if axis == 0:
+            layer = RowParallelLinear(size[0], size[1],
+                                      weight_attr=weight_attr,
+                                      has_bias=bias_attr is not False,
+                                      input_is_parallel=False)
+        else:
+            layer = ColumnParallelLinear(size[0], size[1],
+                                         weight_attr=weight_attr,
+                                         has_bias=bias_attr is not False,
+                                         gather_output=gather_out)
+        return layer(x)
+    raise ValueError(f"unsupported split operation {operation}")

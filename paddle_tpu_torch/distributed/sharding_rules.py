@@ -25,8 +25,11 @@ a spec is the block the reference's ``addressable_shards[r]`` holds
 5. **Replication-fallback accounting** (:func:`replication_fallback`,
    :func:`resolve_flat_shard_spec`).
 
-``sep_activation_spec`` and ``override_leading_axis`` wait for the
-sequence and pipeline slices (ROADMAP A7b/A7c).
+The model axis enters through ``_dims_mapping`` (a dim the degree does not
+divide stays replicated, as in the reference); :func:`without_axis` is the
+spec of a rank's model-axis block (the block the tensor-parallel steps hold
+and compute on).  ``override_leading_axis`` waits for the pipeline slice
+(ROADMAP A7c).
 """
 
 from __future__ import annotations
@@ -44,7 +47,8 @@ __all__ = [
     "build_state_shardings", "gather_full", "local_shard", "make_spec",
     "match_partition_rules", "register_rules", "replica_stacked_spec",
     "replicated_spec", "replication_fallback", "resolve_flat_shard_spec",
-    "sharding_rules_digest", "spec_tree_digest", "unregister_rules",
+    "sep_activation_spec", "sharding_rules_digest", "spec_tree_digest",
+    "unregister_rules", "without_axis",
 ]
 
 #: Bump when the SEMANTICS of the built-in inference below change without
@@ -83,6 +87,10 @@ class PartitionSpec(tuple):
     def __new__(cls, *entries):
         return super().__new__(cls, tuple(
             tuple(e) if isinstance(e, list) else e for e in entries))
+
+    def __getnewargs__(self):
+        # pickle passes these to ``__new__``: the entries, not one tuple
+        return tuple(self)
 
     def __repr__(self):
         return f"PartitionSpec{tuple.__repr__(tuple(self))}" \
@@ -164,6 +172,28 @@ def activation_batch_spec(mesh) -> Optional[PartitionSpec]:
     if "data" in mesh.shape and mesh.shape["data"] > 1:
         return PartitionSpec("data", None, None)
     return None
+
+
+def sep_activation_spec(ndim: int = 4, axis: str = "sep",
+                        seq_dim: int = 1) -> PartitionSpec:
+    """The sequence-parallel attention operands' layout: ``axis`` on the
+    sequence dim, everything else replicated (``P(None, "sep", None,
+    None)`` at the default rank)."""
+    entries: list = [None] * ndim
+    entries[seq_dim] = axis
+    return PartitionSpec(*entries)
+
+
+def without_axis(spec: PartitionSpec, axis: str = "model") -> PartitionSpec:
+    """``spec`` with ``axis`` taken out of every entry: the layout of a
+    rank's block along that axis, seen as a whole tensor (the other axes
+    split it as ``spec`` does)."""
+    out = []
+    for e in spec:
+        axes = tuple(a for a in _entry_axes(e) if a != axis)
+        out.append(None if not axes else axes[0] if len(axes) == 1
+                   else axes)
+    return PartitionSpec(*out)
 
 
 # --------------------------------------------------------------------------
@@ -310,19 +340,15 @@ def local_shard(full, spec: PartitionSpec, mesh):
 
 
 def gather_full(shard, spec: PartitionSpec, mesh):
-    """The whole tensor from each rank's :func:`local_shard` (one
-    all-gather over each sharded dim's axis group).  Tuple entries wait
-    for the model-axis slices."""
+    """The whole tensor from each rank's :func:`local_shard`: an
+    all-gather along each sharded dim over each of its axes' groups, the
+    entry's last (minor) axis first."""
     from .collective import all_gather_dim
     out = shard
     for d, entry in enumerate(spec):
-        axes = _entry_axes(entry)
-        if len(axes) > 1:
-            raise NotImplementedError(
-                "gathering a dim sharded over several axes waits for the "
-                "model-axis slice (ROADMAP A7b)")
-        if axes and mesh.shape[axes[0]] > 1:
-            out = all_gather_dim(out, d, mesh.axis_group(axes[0]))
+        for a in reversed(_entry_axes(entry)):
+            if mesh.shape[a] > 1:
+                out = all_gather_dim(out, d, mesh.axis_group(a))
     return out
 
 

@@ -1,4 +1,5 @@
-"""The train steps over a mesh of data × sharding ranks (counterpart of
+"""The train steps over a mesh of data × sharding × sep × model ranks
+(counterpart of
 ``paddle_tpu/distributed/spmd.py`` ``make_spmd_train_step``,
 ``_make_gspmd_step``, ``make_gspmd_step_from_loss``, ``shard_batch`` and
 ``make_gspmd_sharded_init_step``).
@@ -8,10 +9,17 @@ collectives.  Here every rank runs the step on its own process
 (``topology.ProcessMesh``) and the collectives are explicit:
 
 - every rank is given the GLOBAL batch and takes its rows (dim 0 split
-  over the data × sharding ranks in rank order);
-- the loss is the mean over the ranks of each rank's mean (equal row
-  counts: the global mean); the gradients are the mean over the ranks
-  (one flat all-reduce; under a sharded parameter or ZeRO-2 layout a
+  over the data × sharding ranks in rank order: ``mesh.batch_group()``,
+  the ranks at this rank's model and sep coordinates) and, over sep
+  ranks, its chunk of the sequence (``seq_dim`` split in sep order);
+- a parameter the model axis splits is held and computed on as this
+  rank's block (the model's own collectives run the tensor parallelism;
+  its gradient is the block's), and everything below treats the block
+  as the whole tensor (``sharding_rules.without_axis``);
+- the loss is the mean over the data × sharding × sep ranks of each
+  rank's mean (equal counts: the global mean; the model ranks compute
+  the same loss); the gradients are the mean over those ranks (one flat
+  all-reduce; under a sharded parameter or ZeRO-2 layout a
   reduce-scatter into the slot layout instead);
 - ``grad_comm`` runs in LOCAL mode on the mean-reduced fp32 gradient, as
   in the reference's GSPMD steps (``grad_comm.py``);
@@ -20,9 +28,10 @@ collectives.  Here every rank runs the step on its own process
   the parameters are all-gathered back where their spec replicates them.
 
 A mesh of one rank (or none) takes the one-device step: the loss and its
-gradients, then ``optimizer.update``, with nothing to communicate.
-``shard_map``, ``spmd_pipeline*`` and ``ensure_varying`` wait for ROADMAP
-A7b/A7c.
+gradients, then ``optimizer.update``, with nothing to communicate.  ZeRO
+and its stage-2/3 layouts compose with the data and sharding axes only
+(over model or sep ranks they raise: ROADMAP A7b).  ``spmd_pipeline*``
+and ``ensure_varying`` wait for ROADMAP A7c.
 """
 
 from __future__ import annotations
@@ -33,9 +42,11 @@ import torch
 from torch import nn
 
 from ..core import rng
-from .sharding_rules import (batch_spec, build_param_specs,
-                             build_state_shardings, gather_full, local_shard,
-                             replicated_spec, spec_shards)
+from .sharding_rules import (PartitionSpec, _entry_axes, batch_spec,
+                             build_param_specs, build_state_shardings,
+                             gather_full, local_shard, replicated_spec,
+                             spec_shards, without_axis)
+from .topology import GRAD_AXES
 
 
 class _Thunk(nn.Module):
@@ -54,17 +65,18 @@ class _Thunk(nn.Module):
 # the pieces every step shares
 # --------------------------------------------------------------------------
 
-def _rows(batch, R: int, idx: int, skip=()):
-    """This rank's rows of the batch: each tensor of rank >= 1 (nested in
-    lists, tuples and dicts too) split into ``R`` equal blocks along dim
-    0, block ``idx`` kept; positions in ``skip`` ride whole."""
+def _rows(batch, R: int, idx: int, skip=(), dim: int = 0):
+    """This rank's block of the batch: each tensor with a dim ``dim``
+    (nested in lists, tuples and dicts too) split into ``R`` equal blocks
+    along it, block ``idx`` kept (dim 0: a rank's rows; dim 1 over the
+    sep ranks: its sequence chunk); positions in ``skip`` ride whole."""
     def one(x):
-        if isinstance(x, torch.Tensor) and x.dim() >= 1:
-            if x.shape[0] % R:
-                raise ValueError(f"a batch of {x.shape[0]} rows does not "
-                                 f"split over {R} ranks")
-            n = x.shape[0] // R
-            return x[idx * n:(idx + 1) * n]
+        if isinstance(x, torch.Tensor) and x.dim() > dim:
+            if x.shape[dim] % R:
+                raise ValueError(f"dim {dim} of a batch ({x.shape[dim]}) "
+                                 f"does not split over {R} ranks")
+            n = x.shape[dim] // R
+            return x.narrow(dim, idx * n, n)
         if isinstance(x, (list, tuple)):
             return type(x)(one(v) for v in x)
         if isinstance(x, dict):
@@ -73,6 +85,17 @@ def _rows(batch, R: int, idx: int, skip=()):
     if R <= 1:
         return tuple(batch)
     return tuple(x if i in skip else one(x) for i, x in enumerate(batch))
+
+
+def _model_block(t, spec, mesh):
+    """This rank's block of ``t`` along the dims ``spec`` puts on the
+    model axis (``t`` itself when none is split)."""
+    only = PartitionSpec(*(e if "model" in _entry_axes(e) else None
+                           for e in spec))
+    if not spec_shards(only, mesh):
+        return t
+    return local_shard(t.detach(), PartitionSpec(
+        *("model" if e is not None else None for e in only)), mesh)
 
 
 def _trainable(params0, layer):
@@ -179,12 +202,21 @@ def _reduce_scatter_grads(grads, s_specs, mesh, group, R: int):
     return out
 
 
-def _clip_shards(clip, grads, specs, mesh):
-    """The optimizer's clip over gradients held as shards under ``specs``,
-    with whole-tensor semantics (``nn/clip.py``)."""
+def _clip_shards(clip, grads, specs, mesh, model_split=()):
+    """The optimizer's clip over gradients held as shards under ``specs``
+    (or as model-axis blocks: ``model_split``), with whole-tensor
+    semantics (``nn/clip.py``)."""
     if clip is None:
         return grads
     split = {n for n in grads if _sharded_dim(specs[n], mesh) is not None}
+    model_split = {n for n in model_split if n in grads}
+    if split and model_split:
+        raise NotImplementedError(
+            "a gradient clip over tensors split over both the sharding and "
+            "the model axes waits for ROADMAP A7b")
+    if model_split:
+        return clip._clip_shards(grads, model_split,
+                                 mesh.axis_group("model"))
     if not split:
         return clip._clip_pytree(grads)
     return clip._clip_shards(grads, split, mesh.axis_group("sharding"))
@@ -240,22 +272,38 @@ def _global_loss(loss, group, R: int):
 
 def _make_mesh_step(loss_of, params0, optimizer, mesh, layer, p_specs,
                     s_specs, policy, donate: bool = True, *, zero=None,
-                    accumulate_steps: int = 1, comm_spec=None):
+                    accumulate_steps: int = 1, comm_spec=None, seq_dim=None,
+                    held=()):
     """The shared step over ``mesh`` (module docstring).  ``zero`` None
     is the GSPMD counterpart; a dict adds ZeRO's contract
     (``master_keys``, ``dynamic``, ``init_scale``, ``growth_interval``,
     ``backoff``, ``growth``, ``stage``): fp32 masters, the loss scale,
     ``found_inf`` (MAX-reduced over the world: a non-finite step is
     skipped on every rank) and the stage-2 reduce-scatter.
-    ``comm_spec``: the spec of the flat ``comm_e`` residual.  Returns
-    ``(step, state0)`` with ``step(state, lr, *batch) -> (state,
-    loss)``."""
+    ``comm_spec``: the spec of the flat ``comm_e`` residual.
+    ``seq_dim``: the batch tensors' sequence dim the sep ranks split.
+    ``held``: the names of ``params0`` that already are this rank's model
+    blocks (tensor-parallel layers).  Returns ``(step, state0)`` with
+    ``step(state, lr, *batch) -> (state, loss)``; off ZeRO,
+    ``step.layout`` is the state's checkpoint ``Layout`` (each leaf's spec
+    over the whole mesh, the model axis included)."""
     from .grad_comm import apply_policy_local
 
     group, bidx = mesh.batch_group()
-    R = group.nranks
-    dev = next(iter(params0.values())).device
+    ggroup, _ = mesh.batch_group(GRAD_AXES)
+    R, G = group.nranks, ggroup.nranks
+    S, sidx = mesh.shape.get("sep", 1), mesh.coord.get("sep", 0)
+    model_split = {n for n in params0
+                   if mesh.shape.get("model", 1) > 1 and any(
+                       "model" in _entry_axes(e) for e in p_specs[n])}
     trainable = _trainable(params0, layer)
+    whole_specs = (dict(p_specs), dict(s_specs))
+    # from here on a model-axis block stands for its whole tensor
+    params0 = {n: (p if n in held else _model_block(p, p_specs[n], mesh))
+               for n, p in params0.items()}
+    p_specs = {n: without_axis(sp) for n, sp in p_specs.items()}
+    s_specs = {n: without_axis(sp) for n, sp in s_specs.items()}
+    dev = next(iter(params0.values())).device
     p_split = {n: spec_shards(p_specs[n], mesh) for n in params0}
     s_split = {n: spec_shards(s_specs[n], mesh) for n in params0}
     master_keys = set(zero["master_keys"]) if zero else set()
@@ -293,19 +341,26 @@ def _make_mesh_step(loss_of, params0, optimizer, mesh, layer, p_specs,
     # the stage-2/3 layout: gradients reduce-scattered into the slots'
     # shards (a non-fp32 local policy needs the whole mean gradient)
     rs_layout = policy.name == "fp32" and (stage >= 2 or any(p_split.values()))
+    if (zero or rs_layout) and (mesh.shape.get("model", 1) > 1 or S > 1):
+        raise NotImplementedError(
+            "ZeRO layouts over model or sep ranks wait for ROADMAP A7b "
+            "(ZeRO composed with tensor and sequence parallelism)")
 
     def step(state, lr, *batch):
         if not donate:
             state = _clone_tree(state)
         scale = state["scaler"]["scale"] if zero else None
+        rows = _rows(batch, R, bidx)
+        if seq_dim is not None:
+            rows = _rows(rows, S, sidx, dim=seq_dim)
         loss, grads = _rank_loss_and_grads(
             loss_of, state["params"], p_specs, p_split, mesh, holder,
-            trainable, _rows(batch, R, bidx), scale, accumulate_steps)
+            trainable, rows, scale, accumulate_steps)
         if zero:
             inv = torch.where(scale > 0, 1.0 / scale, torch.zeros_like(scale))
             grads = {n: g.float() * inv for n, g in grads.items()}
         grads = (_reduce_scatter_grads(grads, s_specs, mesh, group, R)
-                 if rs_layout else _mean_all(grads, group, R))
+                 if rs_layout else _mean_all(grads, ggroup, G))
         found_inf = _found_inf(grads, group) if zero else None
         comm_state = {}
         if policy.name != "fp32":
@@ -323,7 +378,8 @@ def _make_mesh_step(loss_of, params0, optimizer, mesh, layer, p_specs,
                        params[n] if p_split[n] or not s_split[n] else
                        local_shard(params[n], s_specs[n], mesh))
                    for n in trainable}
-            grads = _clip_shards(optimizer._grad_clip, grads, s_specs, mesh)
+            grads = _clip_shards(optimizer._grad_clip, grads, s_specs, mesh,
+                                 model_split)
             new_upd, new_opt = optimizer._apply_update(
                 grads, {"step": state["opt"]["step"],
                         "slots": {n: state["opt"]["slots"][n]
@@ -371,7 +427,7 @@ def _make_mesh_step(loss_of, params0, optimizer, mesh, layer, p_specs,
                     sc["good_steps"] = torch.where(grow, torch.zeros_like(
                         good), good)
                 sc["found_inf"] = found_inf
-        return state, _global_loss(loss, group, R)
+        return state, _global_loss(loss, ggroup, G)
 
     if _is_solo(mesh):
         return step, state0
@@ -380,6 +436,18 @@ def _make_mesh_step(loss_of, params0, optimizer, mesh, layer, p_specs,
         with rng.refuse_draws(_MESH_DRAWS):
             return step(state, lr, *batch)
 
+    if not zero:
+        from .checkpoint import Layout
+        rep_ = replicated_spec()
+        specs = {"params": {n: whole_specs[0][n] for n in params0},
+                 "opt": {"step": rep_, "slots": {
+                     n: {k: (whole_specs[1][n] if v.dim() > 0 else rep_)
+                         for k, v in sl.items()}
+                     for n, sl in opt0["slots"].items()}},
+                 "buffers": {k: rep_ for k in state0["buffers"]}}
+        if "comm_e" in state0:
+            specs["comm_e"] = comm_spec
+        refusing.layout = Layout(specs, mesh)
     return refusing, state0
 
 
@@ -578,11 +646,15 @@ def make_spmd_train_step(layer, loss_fn, optimizer, hcg, zero_stage: int = 0,
     params0 = dict(layer.named_parameters())
 
     loss_of = _make_loss_of(layer, loss_fn, None, [])
+    held = _held_blocks(params0, mesh)
     p_specs = build_param_specs(params0, mesh, layer, zero_stage)
+    p_specs.update({n: _held_spec(params0[n], p_specs[n], mesh)
+                    for n in held})
     s_specs = _slot_specs(p_specs, params0, mesh, zero_stage)
     raw, state0 = _make_mesh_step(loss_of, params0, optimizer, mesh, layer,
                                   p_specs, s_specs, policy, donate,
-                                  accumulate_steps=accumulate_steps)
+                                  accumulate_steps=accumulate_steps,
+                                  held=held)
     state0["buffers"] = dict(layer.named_buffers())
     specs = build_state_shardings(state0, p_specs, mesh, zero_stage, params0)
     if policy.stateful:
@@ -597,9 +669,30 @@ def make_spmd_train_step(layer, loss_fn, optimizer, hcg, zero_stage: int = 0,
         state0, specs
 
 
+def _held_blocks(params0, mesh):
+    """The parameters a tensor-parallel layer already holds as its
+    model-axis block (``is_distributed``; none off a model mesh)."""
+    if mesh is None or mesh.shape.get("model", 1) <= 1:
+        return set()
+    return {n for n, p in params0.items()
+            if getattr(p, "is_distributed", False) is True}
+
+
+def _held_spec(p, spec, mesh):
+    """The whole tensor's spec of a held block: ``spec`` with "model" on
+    the dims its ``_dims_mapping`` names (the block's own shape cannot
+    tell whether the degree divides the whole)."""
+    entries = list(spec) + [None] * (p.dim() - len(spec))
+    for d, axis in getattr(p, "_dims_mapping", {}).items():
+        if axis == "model":
+            entries[int(d)] = "model"
+    return PartitionSpec(*entries)
+
+
 def make_gspmd_step_from_loss(loss_of, params0, optimizer, mesh=None,
                               layer=None, zero_stage: int = 0,
-                              donate: bool = True, grad_comm=None):
+                              donate: bool = True, grad_comm=None,
+                              seq_dim=None):
     """The shared builder for functional models (gpt/bert):
     ``loss_of(params, *batch) -> scalar``.  Returns ``(step, state0)``
     with ``step(state, lr, *batch) -> (state, loss)`` and state
@@ -612,8 +705,10 @@ def make_gspmd_step_from_loss(loss_of, params0, optimizer, mesh=None,
     slots INTO the state's tensors (the model sees every update);
     ``donate=False`` leaves the given state untouched and returns a fresh
     one.  Over a mesh of more than one rank the slots shard over
-    "sharding" as ZeRO-1 (the reference's ``max(zero_stage, 1)``) and the
-    batch rows split over the ranks (module docstring)."""
+    "sharding" as ZeRO-1 (the reference's ``max(zero_stage, 1)``), the
+    batch rows split over the ranks, the sequence dim ``seq_dim`` over
+    the sep ranks, and a parameter the model axis splits is held as this
+    rank's block, which ``loss_of`` computes on (module docstring)."""
     from .grad_comm import resolve_policy
     policy = resolve_policy(grad_comm)
     if _is_solo(mesh):
@@ -622,7 +717,7 @@ def make_gspmd_step_from_loss(loss_of, params0, optimizer, mesh=None,
     p_specs = build_param_specs(params0, mesh, layer, zero_stage)
     s_specs = _slot_specs(p_specs, params0, mesh, max(zero_stage, 1))
     return _make_mesh_step(loss_of, params0, optimizer, mesh, layer, p_specs,
-                           s_specs, policy, donate)
+                           s_specs, policy, donate, seq_dim=seq_dim)
 
 
 def _slot_specs(p_specs, params0, mesh, zero_stage):

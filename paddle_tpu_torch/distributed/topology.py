@@ -7,9 +7,10 @@ mesh, ``np.array(devs).reshape(dims)`` over the axes in ``HYBRID_AXES``
 order.  The port is multi-controller, one process per rank: rank r is the
 device at flat position r of that mesh (``ProcessMesh``), and the hybrid
 group builds one ``torch.distributed`` process group per axis and per
-coordinate, in ``HYBRID_AXES`` order, on every rank.  This slice runs
-the data and sharding axes; a model, pipe or sep degree above 1 raises
-(ROADMAP A7b, A7c).
+coordinate, in ``HYBRID_AXES`` order, on every rank, and one group for
+each combination of the batch axes the train steps reduce over
+(``BATCH_AXES``, ``GRAD_AXES``).  The data, sharding, sep and model axes
+run; a pipe degree above 1 raises (ROADMAP A7c).
 """
 
 from __future__ import annotations
@@ -21,6 +22,10 @@ import numpy as np
 
 # canonical axis order, outer → inner (reference topology.py:361)
 HYBRID_AXES = ("data", "pipe", "sharding", "sep", "model")
+#: the axes a batch's rows split over, and the axes a gradient is averaged
+#: over (the rows and the sequence chunks)
+BATCH_AXES = ("data", "sharding")
+GRAD_AXES = ("data", "sharding", "sep")
 
 
 class CommunicateTopology:
@@ -58,17 +63,26 @@ class CommunicateTopology:
 
     def get_comm_list(self, axis_name: str) -> List[List[int]]:
         """All groups along ``axis_name`` (ranks varying only that coord)."""
-        axis = self._parallel_names.index(axis_name)
-        other = [self._parallel_names[i] for i in range(len(self._parallel_names))
-                 if i != axis]
+        return self.get_comm_list_over((axis_name,))
+
+    def get_comm_list_over(self, axis_names: Sequence[str]) -> List[List[int]]:
+        """All groups over the axes ``axis_names`` (ranks varying only
+        those coords), each in rank order: the first axis in
+        ``hybrid_group_names`` order is the major one."""
+        names = self._parallel_names
+        moving = [i for i, n in enumerate(names) if n in axis_names]
+        other = [i for i in range(len(names)) if i not in moving]
         groups = []
-        for combo in itertools.product(*(range(self._dims[i])
-                                         for i in range(len(self._dims)) if i != axis)):
-            fixed = dict(zip(other, combo))
+        for combo in itertools.product(*(range(self._dims[i]) for i in other)):
+            coord = [0] * len(names)
+            for i, v in zip(other, combo):
+                coord[i] = v
             group = []
-            for v in range(self._dims[axis]):
-                fixed[axis_name] = v
-                group.append(self.get_rank(**fixed))
+            for vals in itertools.product(*(range(self._dims[i])
+                                            for i in moving)):
+                for i, v in zip(moving, vals):
+                    coord[i] = v
+                group.append(self._coord2rank[tuple(coord)])
             groups.append(group)
         return groups
 
@@ -113,23 +127,28 @@ class ProcessMesh:
                                f"HybridCommunicateGroup")
         return self._groups[axis]
 
-    def batch_group(self, axes=("data", "sharding")):
-        """The group over the batch axes ``axes`` (here the whole world:
-        the other axes have size 1), and this rank's index in it."""
+    def batch_group(self, axes=BATCH_AXES):
+        """The group over the axes ``axes`` (the ranks that differ from
+        this one only along them: by default the data × sharding ranks at
+        this rank's model and sep coordinates), and this rank's index in
+        it (the first axis the major one)."""
         from .collective import Group
-        live = [a for a in axes if self.shape.get(a, 1) > 1]
-        n = int(np.prod([self.shape[a] for a in live] or [1]))
+        axes = tuple(a for a in self.axis_names if a in axes)
+        live = tuple(a for a in axes if self.shape[a] > 1)
         idx = 0
         for a in axes:
-            if a in self.shape:
-                idx = idx * self.shape[a] + self.coord[a]
-        if n <= 1:
+            idx = idx * self.shape[a] + self.coord[a]
+        if not live:
             return Group(ranks=[self.rank], axis_name="batch"), 0
-        if n != self.size:
-            raise NotImplementedError(
-                "a batch group smaller than the world needs the model-axis "
-                "slices (ROADMAP A7b)")
-        return Group(ranks=list(range(self.size)), axis_name="batch"), idx
+        if int(np.prod([self.shape[a] for a in live])) == self.size:
+            return Group(ranks=list(range(self.size)), axis_name="batch"), idx
+        if len(live) == 1:
+            return self.axis_group(live[0]), idx
+        if self._groups is None or live not in self._groups:
+            raise RuntimeError(f"this mesh has no process group over "
+                               f"{live}; build it through "
+                               f"HybridCommunicateGroup")
+        return self._groups[live], idx
 
     def __repr__(self):
         return f"ProcessMesh({self.shape}, rank={self.rank})"
@@ -155,15 +174,11 @@ class HybridCommunicateGroup:
             sharding_degree = dims.get("sharding", 1)
             sep_degree = dims.get("sep", 1)
             mp_degree = dims.get("model", 1)
-        waits = (("mp_degree", mp_degree, "A7b"),
-                 ("sep_degree", sep_degree, "A7b"),
-                 ("pp_degree", pp_degree, "A7c"))
-        for name, deg, item in waits:
-            if int(deg) > 1:
-                raise NotImplementedError(
-                    f"{name} {deg} waits for ROADMAP {item} (tensor and "
-                    f"sequence parallelism A7b, the pipeline A7c); this "
-                    f"port runs the data and sharding axes")
+        if int(pp_degree) > 1:
+            raise NotImplementedError(
+                f"pp_degree {pp_degree} waits for ROADMAP A7c (the pipeline "
+                f"engine); this port runs the data, sharding, sep and model "
+                f"axes")
         self._dp_degree = dp_degree
         self._mp_degree = mp_degree
         self._pp_degree = pp_degree
@@ -190,20 +205,27 @@ class HybridCommunicateGroup:
                                  self.global_rank, self._groups)
 
     def _build_groups(self):
-        """Every rank creates every axis group in the same order; it keeps
-        the one of each axis that contains it."""
+        """Every rank creates every axis group in the same order, then a
+        group for each combination of two or more live axes among
+        ``BATCH_AXES`` and ``GRAD_AXES``; it keeps the ones that contain
+        it (an axis under its name, a combination under its tuple)."""
         from .collective import Group
         import torch.distributed as dist
         mine = {}
-        for axis in self._axis_names:
-            n = self._topo.get_dim(axis)
-            if n <= 1:
-                continue
-            for ranks in self._topo.get_comm_list(axis):
+        live = [a for a in self._axis_names if self._topo.get_dim(a) > 1]
+        combos = [(a,) for a in live]
+        for axes in (BATCH_AXES, GRAD_AXES):
+            c = tuple(a for a in live if a in axes)
+            if len(c) > 1 and c not in combos:
+                combos.append(c)
+        for c in combos:
+            n = int(np.prod([self._topo.get_dim(a) for a in c]))
+            for ranks in self._topo.get_comm_list_over(c):
                 pg = None if n == self.nranks else dist.new_group(ranks)
                 if self.global_rank in ranks:
-                    mine[axis] = Group(ranks=ranks, axis_name=axis, hcg=self,
-                                       pg=pg)
+                    key = c[0] if len(c) == 1 else c
+                    mine[key] = Group(ranks=ranks, axis_name="_".join(c),
+                                      hcg=self, pg=pg)
         return mine
 
     @property

@@ -4,17 +4,41 @@ block pools, the tied head), the KV-cache path (``prefill``,
 ``decode_step`` over dense caches or ``PagedKV`` pools, ``generate`` from
 the mixin) and the single-device training path
 (``embed_fn`` → ``scan_blocks`` over flash-attention blocks →
-``head_loss_fn``, and ``make_gpt_train_step``).
+``head_loss_fn``, and ``make_gpt_train_step``) over one device or a
+hybrid mesh of data, sharding, sep and model ranks.
 
 The parameters keep the reference's names and stacked ``[L, …]`` layout
 (``stacked_param_names``), so a numpy state dict moves between the two
 packages with no mapping (``params_from_numpy``).  Parameters are fp32;
 matmuls run in ``config.compute_dtype`` with LayerNorm statistics in fp32,
 as in the reference.
+
+Over a mesh (:class:`MeshContext`, built by ``make_gpt_train_step``) a
+rank holds the reference's ``addressable_shards[r]`` of every parameter
+(the ``_dims_mapping`` below: ``wte`` split over the vocabulary, ``qkv``
+and ``fc1`` over their output columns, ``proj`` and ``fc2`` over their
+input rows) and computes Megatron's way:
+
+- ``model`` (mp): each rank computes its nh/mp heads and its I/mp MLP
+  columns; the column-parallel inputs go through ``copy_to_group`` and the
+  row-parallel ``proj`` and ``fc2`` products end in an all-reduce
+  (``reduce_from_group``); the embedding is a masked lookup of the rank's
+  vocabulary rows, all-reduced; the tied head gives each rank its
+  vocabulary columns of the logits and the loss reduces the max, the sum
+  and the target logit over the group (``ops/loss.py``), never gathering
+  the logits.  The reference's ``qkv`` shard is 3H/mp contiguous columns
+  (rank 0 at mp 2 holds all of q and half of k): the state keeps it, and
+  the step gathers the compute-dtype weight once and takes each rank's
+  heads' q, k and v columns (the gather's gradient is reduce-scattered
+  back; each column has one user, so the sums are exact).
+- ``sep``: each rank embeds its sequence chunk at its global positions,
+  and attention runs as ring, Ulysses (``ops/ring_attention.py``) or,
+  with no ``sequence_parallel`` mode, over the gathered sequence.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 
 import numpy as np
@@ -26,7 +50,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from .. import resolve_device
 from ..ops.attention import flash_attention
-from ..ops.loss import softmax_cross_entropy_mean
+from ..ops.loss import (softmax_cross_entropy_mean,
+                        vocab_parallel_cross_entropy_mean)
 from ..ops.ragged_paged_attention import ragged_plan
 from ._decode import (CausalDecoderMixin, PagedKV, cached_attention,
                       dequantize_cache, ragged_attention, ragged_write,
@@ -40,8 +65,9 @@ class GPTConfig:
     ``attention_probs_dropout_prob`` and ``use_flash_attention`` are kept
     and not read (the reference's GPT block applies no dropout and always
     calls ``flash_attention``); ``scan_unroll`` has no effect on the port's
-    Python loop over layers; a ``sequence_parallel`` mode raises until the
-    distributed slice."""
+    Python loop over layers.  ``sequence_parallel`` ("ring" or "ulysses")
+    selects the attention over the ``sep`` ranks of a mesh; None gathers
+    the sequence for attention, as the reference's GSPMD does."""
 
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
                  num_attention_heads=12, intermediate_size=None,
@@ -81,9 +107,6 @@ class GPTConfig:
         if sequence_parallel not in (None, "ring", "ulysses"):
             raise ValueError(f"sequence_parallel must be None, 'ring' or "
                              f"'ulysses', got {sequence_parallel!r}")
-        if sequence_parallel is not None:
-            raise NotImplementedError(
-                "sequence_parallel (ring/Ulysses attention) is ROADMAP A7b")
         self.sequence_parallel = sequence_parallel
 
 
@@ -188,24 +211,32 @@ class StackedDecoder(CausalDecoderMixin, nn.Module):
         return ((x32 - m) * torch.rsqrt(v + self.config.layer_norm_epsilon)
                 * w + b).to(dt)
 
-    def _block_qkv(self, l, h):
-        """Layer ``l``'s pre-LN + QKV projection; q, k, v (B, L, nh, hd)."""
+    def _block_qkv(self, l, h, par=None):
+        """Layer ``l``'s pre-LN + QKV projection; q, k, v (B, L, nh, hd)
+        (nh/mp heads, this rank's, under a model-parallel ``par``)."""
         c = self.config
         B, Lq, H = h.shape
-        nh = c.num_attention_heads
-        hd = H // nh
+        hd = H // c.num_attention_heads
         a_in = self._block_ln(h, self.blocks_ln1_w[l], self.blocks_ln1_b[l],
                               h.dtype)
-        qkv = a_in @ self._cw("blocks_qkv_w", l) + self._cw("blocks_qkv_b", l)
-        q, k, v = qkv.split(H, -1)
+        if par is not None and par.heads_split:
+            qkv = par.copy(a_in) @ par.qkv_w[l] + par.qkv_b[l]
+        else:
+            qkv = a_in @ self._cw("blocks_qkv_w", l) \
+                + self._cw("blocks_qkv_b", l)
+        q, k, v = qkv.split(qkv.shape[-1] // 3, -1)
+        nh = q.shape[-1] // hd
         return (q.reshape(B, Lq, nh, hd), k.reshape(B, Lq, nh, hd),
                 v.reshape(B, Lq, nh, hd))
 
-    def _attn_residual(self, l, h, att):
-        """Layer ``l``'s output projection + residual."""
+    def _attn_residual(self, l, h, att, par=None):
+        """Layer ``l``'s output projection + residual (a row-parallel
+        product all-reduced over the model ranks under ``par``)."""
         B, Lq, H = h.shape
-        return h + att.reshape(B, Lq, H) @ self._cw("blocks_proj_w", l) \
-            + self._cw("blocks_proj_b", l)
+        out = att.reshape(B, Lq, -1) @ self._cw("blocks_proj_w", l)
+        if par is not None and par.heads_split:
+            out = par.reduce(out)
+        return h + out + self._cw("blocks_proj_b", l)
 
     def _block_post_attn(self, l, h, att):
         raise NotImplementedError
@@ -294,10 +325,19 @@ class StackedDecoder(CausalDecoderMixin, nn.Module):
                                    pad_lens=pad_lens)
         return h, caches
 
-    def embed_fn(self, input_ids, key=None):
-        pos = torch.arange(input_ids.shape[-1], device=input_ids.device)
-        h = F.embedding(input_ids.long(), self.wte) + self.wpe[pos]
-        return h.to(self.compute_dtype)
+    def embed_fn(self, input_ids, key=None, par=None):
+        """Token plus position embeddings in the compute dtype.  With
+        ``par`` (a :class:`MeshContext`) the ids are this rank's chunk,
+        embedded at its global positions, and a ``wte`` split over the
+        model ranks is looked up masked and all-reduced."""
+        Lq = input_ids.shape[-1]
+        pos = torch.arange(Lq, device=input_ids.device)
+        if par is None:
+            emb = F.embedding(input_ids.long(), self.wte)
+        else:
+            pos = pos + par.sep_rank * Lq
+            emb = par.vocab_lookup(input_ids, self.wte)
+        return (emb + self.wpe[pos]).to(self.compute_dtype)
 
 
 class GPTModel(StackedDecoder):
@@ -336,6 +376,7 @@ class GPTModel(StackedDecoder):
         if not c.tie_word_embeddings:
             self.lm_head = normal([H, V])
         self._casts = {}
+        mark_dims_mapping(self)
 
     @staticmethod
     def stacked_param_names():
@@ -343,20 +384,29 @@ class GPTModel(StackedDecoder):
                                         "proj_w", "proj_b", "ln2_w", "ln2_b",
                                         "fc1_w", "fc1_b", "fc2_w", "fc2_b")]
 
-    def _block_post_attn(self, l, h, att):
-        """Layer ``l``'s output projection + residual + MLP half."""
-        h = self._attn_residual(l, h, att)
+    def _block_post_attn(self, l, h, att, par=None):
+        """Layer ``l``'s output projection + residual + MLP half (this
+        rank's I/mp columns, then an all-reduce, under a model-parallel
+        ``par``)."""
+        h = self._attn_residual(l, h, att, par)
         m_in = self._block_ln(h, self.blocks_ln2_w[l], self.blocks_ln2_b[l],
                               h.dtype)
+        mlp_split = par is not None and par.mlp_split
+        if mlp_split:
+            m_in = par.copy(m_in)
         approx = "tanh" if self.config.hidden_act == "gelu_approx" else "none"
         ff = F.gelu(m_in @ self._cw("blocks_fc1_w", l)
                     + self._cw("blocks_fc1_b", l), approximate=approx)
-        return h + ff @ self._cw("blocks_fc2_w", l) \
-            + self._cw("blocks_fc2_b", l)
+        out = ff @ self._cw("blocks_fc2_w", l)
+        if mlp_split:
+            out = par.reduce(out)
+        return h + out + self._cw("blocks_fc2_b", l)
 
     # ------------------------------------------------------------- head --
 
-    def _head_logits(self, h):
+    def _head_logits(self, h, par=None):
+        """Logits in the compute dtype: this rank's vocabulary columns
+        when ``par`` splits the head over the model ranks."""
         c = self.config
         x32 = h.float()
         m = x32.mean(-1, keepdim=True)
@@ -365,7 +415,10 @@ class GPTModel(StackedDecoder):
             + self.lnf_b
         w = (self._cw("wte").T if c.tie_word_embeddings
              else self._cw("lm_head"))
-        return h.to(self.compute_dtype) @ w
+        h = h.to(self.compute_dtype)
+        if par is not None and par.head_split:
+            h = par.copy(h)
+        return h @ w
 
     def head_fn(self, h):
         return self._head_logits(h).float()
@@ -378,18 +431,24 @@ class GPTModel(StackedDecoder):
     # The reference's pure functions take a params pytree; here they read
     # the module's own parameters, which the train step updates in place.
 
-    def block_fn(self, l, h, key=None):
-        """Layer ``l``: pre-LN causal flash attention, then the MLP half."""
-        q, k, v = self._block_qkv(l, h)
-        return self._block_post_attn(l, h, flash_attention(q, k, v,
-                                                           causal=True))
+    def block_fn(self, l, h, key=None, par=None):
+        """Layer ``l``: pre-LN causal flash attention, then the MLP half
+        (over ``par``'s sequence and model ranks when given)."""
+        q, k, v = self._block_qkv(l, h, par)
+        att = (flash_attention(q, k, v, causal=True) if par is None
+               else par.attention(q, k, v))
+        return self._block_post_attn(l, h, att, par)
 
-    def head_loss_fn(self, h, labels):
+    def head_loss_fn(self, h, labels, par=None):
         """Fused CE on compute-dtype logits (never an fp32 (B, L, V)
-        log-prob tensor)."""
-        return softmax_cross_entropy_mean(self._head_logits(h), labels)
+        log-prob tensor); over vocabulary-split logits when ``par`` splits
+        the head (the same mean, on every model rank)."""
+        logits = self._head_logits(h, par)
+        if par is not None and par.head_split:
+            return vocab_parallel_cross_entropy_mean(logits, labels, par.mp)
+        return softmax_cross_entropy_mean(logits, labels)
 
-    def scan_blocks(self, h, key=None, remat=True):
+    def scan_blocks(self, h, key=None, remat=True, par=None):
         """All layers in order.  ``remat``: False saves every activation;
         True recomputes each block in the backward (``torch.utils.
         checkpoint``); "dots" saves the matmul outputs and recomputes the
@@ -403,10 +462,10 @@ class GPTModel(StackedDecoder):
             kw["context_fn"] = _save_dots_context
         for l in range(self.config.num_layers):
             if remat:
-                h = checkpoint(self.block_fn, l, h, use_reentrant=False,
-                               **kw)
+                h = checkpoint(self.block_fn, l, h, key, par,
+                               use_reentrant=False, **kw)
             else:
-                h = self.block_fn(l, h)
+                h = self.block_fn(l, h, key, par)
         return h
 
     def forward(self, input_ids):
@@ -440,6 +499,113 @@ def _save_dots_context():
     return create_selective_checkpoint_contexts(_save_dots_policy)
 
 
+#: the reference's model-axis layout of GPT's parameters
+#: (``paddle_tpu/models/gpt.py:124-147``): vocabulary-parallel ``wte``,
+#: column-parallel ``qkv``/``fc1``, row-parallel ``proj``/``fc2``
+DIMS_MAPPING = {"wte": {0: "model"}, "blocks_qkv_w": {2: "model"},
+                "blocks_qkv_b": {1: "model"}, "blocks_proj_w": {1: "model"},
+                "blocks_fc1_w": {2: "model"}, "blocks_fc1_b": {1: "model"},
+                "blocks_fc2_w": {1: "model"}, "lm_head": {1: "model"}}
+
+
+def mark_dims_mapping(model):
+    """Set the reference's ``_dims_mapping`` on ``model``'s parameters
+    (what ``sharding_rules.build_param_specs`` reads)."""
+    for n, p in model.named_parameters():
+        if n in DIMS_MAPPING:
+            p._dims_mapping = dict(DIMS_MAPPING[n])
+    return model
+
+
+class MeshContext:
+    """What one rank of a data × sharding × sep × model mesh computes GPT
+    with (module docstring): its model and sep groups, which parts
+    ``specs`` (the parameters' partition specs) split over the model
+    ranks, and the attention over the sep ranks (the config's
+    ``sequence_parallel``).  The head-aligned QKV weight and bias of a
+    step are set by :meth:`bind`."""
+
+    def __init__(self, mesh, specs, config):
+        from ..distributed.sharding_rules import _entry_axes
+
+        def split(name):
+            return any("model" in _entry_axes(e)
+                       for e in specs.get(name, ()))
+
+        self.mp = mesh.axis_group("model")
+        self.sep = mesh.axis_group("sep")
+        self.sep_rank = mesh.coord.get("sep", 0)
+        self.mode = config.sequence_parallel
+        split_mp = self.mp.nranks > 1
+        self.vocab_split = split_mp and split("wte")
+        self.head_split = split_mp and split(
+            "wte" if config.tie_word_embeddings else "lm_head")
+        self.heads_split = split_mp and split("blocks_qkv_w")
+        self.mlp_split = split_mp and split("blocks_fc1_w")
+        nh = config.num_attention_heads
+        if self.heads_split and nh % self.mp.nranks:
+            raise ValueError(
+                f"num_attention_heads ({nh}) must divide by the model degree "
+                f"({self.mp.nranks}): a rank computes whole heads")
+        if self.heads_split != split("blocks_proj_w") or \
+                self.mlp_split != split("blocks_fc2_w"):
+            raise ValueError("the column- and row-parallel halves of a "
+                             "block must split alike over the model ranks")
+        self.qkv_w = self.qkv_b = None
+
+    def copy(self, x):
+        from ..distributed.collective import copy_to_group
+        return copy_to_group(x, self.mp)
+
+    def reduce(self, x):
+        from ..distributed.collective import reduce_from_group
+        return reduce_from_group(x, self.mp)
+
+    def bind(self, model):
+        """A copy holding this step's QKV weight and bias: the compute-dtype
+        shards gathered over the model ranks, this rank's heads' q, k and
+        v columns kept (the reference's shard is contiguous 3H/mp columns;
+        module docstring)."""
+        if not self.heads_split:
+            return self
+        from ..distributed.collective import gather_along
+        R, m = self.mp.nranks, self.mp.rank
+
+        def heads(t):
+            full = gather_along(t, t.dim() - 1, self.mp)   # (..., 3H)
+            lead = full.shape[:-1]
+            blk = full.reshape(*lead, 3, R, full.shape[-1] // (3 * R))
+            return blk[..., m, :].reshape(*lead, -1)
+
+        bound = copy.copy(self)
+        bound.qkv_w = heads(model._cw("blocks_qkv_w"))
+        bound.qkv_b = heads(model._cw("blocks_qkv_b"))
+        return bound
+
+    def vocab_lookup(self, ids, wte):
+        """fp32 embeddings of ``ids``: a masked lookup of this rank's
+        vocabulary rows, all-reduced over the model ranks, when they
+        split ``wte``."""
+        if not self.vocab_split:
+            return F.embedding(ids.long(), wte)
+        from ..distributed.fleet.meta_parallel.parallel_layers.mp_layers \
+            import vocab_parallel_embedding
+        return vocab_parallel_embedding(ids, wte, self.mp)
+
+    def attention(self, q, k, v):
+        """Causal attention of this rank's (B, Lc, heads, hd) blocks: over
+        the sep ranks by ``mode`` (ring, Ulysses, or the gathered
+        sequence), else ``flash_attention``."""
+        if self.sep.nranks <= 1:
+            return flash_attention(q, k, v, causal=True)
+        from ..ops import ring_attention as RA
+        if self.mode is None:
+            return RA.gathered_attention(q, k, v, causal=True,
+                                         group=self.sep)
+        return RA.sequence_parallel_attention(q, k, v, causal=True,
+                                              mode=self.mode, group=self.sep)
+
+
 def _mesh_degrees(hcg):
     """Parallel degrees of ``hcg`` (None, or a hybrid group with Paddle's
     ``get_*_world_size`` getters): {axis: degree}."""
@@ -454,28 +620,75 @@ def _mesh_degrees(hcg):
             if hasattr(hcg, g)}
 
 
-def _check_degrees(hcg):
-    """Model, pipe and sep degrees wait for their slices; returns the
-    hybrid group's mesh (None without one)."""
+def _check_degrees(hcg, runs=()):
+    """The pipe degree waits for its slice, and so do the model and sep
+    degrees of a model not in ``runs`` (BERT's and ERNIE's tensor
+    parallelism: ROADMAP A7b); returns the hybrid group's mesh (None
+    without one)."""
     degrees = _mesh_degrees(hcg)
     for axis, item in (("mp", "A7b"), ("sep", "A7b"), ("pp", "A7c")):
-        if degrees.get(axis, 1) > 1:
+        if axis not in runs and degrees.get(axis, 1) > 1:
             raise NotImplementedError(
                 f"{axis} degree {degrees[axis]} waits for ROADMAP {item} "
-                f"(tensor and sequence parallelism A7b, the pipeline "
-                f"A7c); this port trains over data and sharding degrees")
+                f"(BERT's and ERNIE's tensor and sequence parallelism A7b, "
+                f"the pipeline A7c)")
     return None if hcg is None else hcg.mesh
+
+
+def _refuse_composed(hcg, what):
+    """ZeRO and update sharding compose with the data and sharding axes
+    only: over model or sep ranks they raise (ROADMAP A7b)."""
+    degrees = _mesh_degrees(hcg)
+    if degrees.get("mp", 1) > 1 or degrees.get("sep", 1) > 1:
+        raise NotImplementedError(
+            f"{what} with a model or sep degree waits for ROADMAP A7b "
+            f"(ZeRO and update sharding composed with tensor and sequence "
+            f"parallelism); this step runs them over data and sharding")
 
 
 def _rank_batch_info(mesh):
     """``instrument_train_step``'s (examples, tokens) for a rank that takes
-    1/R of the global batch it is given (None on one rank)."""
+    1/R of the rows it is given and 1/S of their sequence (None on one
+    rank): a model group counts its tokens once (on its first rank), and
+    a sep group its examples once."""
     if mesh is None or mesh.size <= 1:
         return None
     from ..telemetry import _default_batch_info
     R = mesh.batch_group()[0].nranks
-    return lambda args, kwargs: tuple(v // R for v in
-                                      _default_batch_info(args))
+    S = mesh.shape.get("sep", 1)
+    first_mp = mesh.coord.get("model", 0) == 0
+    first_sep = mesh.coord.get("sep", 0) == 0
+
+    def info(args, kwargs):
+        ex, tok = _default_batch_info(args)
+        return (ex // R if first_mp and first_sep else 0,
+                tok // (R * S) if first_mp else 0)
+    return info
+
+
+def _mesh_context(model, mesh, params0):
+    """The :class:`MeshContext` of ``model`` over ``mesh`` (None off a
+    model or sep mesh) and the sequence dim the step splits (1, or None
+    without sep ranks)."""
+    if mesh is None or (mesh.shape.get("model", 1) <= 1
+                        and mesh.shape.get("sep", 1) <= 1):
+        return None, None
+    from ..distributed.sharding_rules import build_param_specs
+    mark_dims_mapping(model)
+    par = MeshContext(mesh, build_param_specs(params0, mesh, model),
+                      model.config)
+    return par, (1 if par.sep.nranks > 1 else None)
+
+
+def _gpt_loss(model, par, remat):
+    def loss_of(params, key, x, labels):
+        # ``params`` are the tensors ``model`` holds for this call (its own
+        # parameters, or the state's swapped in)
+        p = None if par is None else par.bind(model)
+        h = model.scan_blocks(model.embed_fn(x, key, p), key, remat=remat,
+                              par=p)
+        return model.head_loss_fn(h, labels, p)
+    return loss_of
 
 
 def make_gpt_train_step(model: GPTModel, optimizer, hcg=None,
@@ -486,8 +699,11 @@ def make_gpt_train_step(model: GPTModel, optimizer, hcg=None,
                         update_sharding: bool = False):
     """The GPT train step: ``step(state, key, lr, input_ids, labels) ->
     (state, loss)``.  ``hcg`` None (one device) or a hybrid group over
-    data and sharding degrees: each rank is given the global batch, takes
-    its rows, and the loss is the global mean (``distributed.spmd``).
+    data, sharding, sep and model degrees: each rank is given the global
+    batch, takes its rows (and, over sep ranks, its sequence chunk), holds
+    its shards of the parameters (model axis) and slots, and the loss is
+    the global mean (``distributed.spmd``; module docstring for the model
+    and sep axes).
 
     - ``zero_stage`` > 0 routes through ``distributed.zero`` (slots and
       fp32 masters sharded, grads reduce-scattered at stage 2, params
@@ -495,39 +711,38 @@ def make_gpt_train_step(model: GPTModel, optimizer, hcg=None,
       ``step.layout`` is then the state's checkpoint ``Layout``;
     - ``update_sharding`` shards the weight update over the data ranks
       (``distributed.update_sharding``, arXiv:2004.13336);
-    - otherwise the data × sharding step (slots ZeRO-1-sharded over
-      "sharding" as the reference's specs give them).
+    - otherwise the mesh step (slots ZeRO-1-sharded over "sharding" as
+      the reference's specs give them).
 
     ``grad_comm`` ("fp32"/"bf16"/"int8_ef" or a policy): local mode in the
-    DP and ZeRO steps, wire mode under ``update_sharding``.  With
+    mesh and ZeRO steps, wire mode under ``update_sharding``.  With
     ``donate`` (the default) ``state["params"]`` are the model's own
-    parameters (their shards under ZeRO-3), updated in place.  ``key`` is
-    accepted and not read: GPT's block applies no dropout.  ``monitor``
-    wraps the step in ``instrument_train_step`` (with ``comm`` events
-    under a compressing policy; each rank counts its own rows).
-    ``dynamic_loss_scale`` outside ZeRO, ``virtual_pp_degree`` and
-    ``n_microbatches`` are ignored, as in the reference off its pipeline
-    branch.  Model, pipe and sep degrees raise (ROADMAP A7b/A7c)."""
+    parameters (their shards under ZeRO-3 or the model axis), updated in
+    place.  ``key`` is accepted and not read: GPT's block applies no
+    dropout.  ``monitor`` wraps the step in ``instrument_train_step``
+    (with ``comm`` events under a compressing policy; each rank counts its
+    own rows).  ``dynamic_loss_scale`` outside ZeRO, ``virtual_pp_degree``
+    and ``n_microbatches`` are ignored, as in the reference off its
+    pipeline branch.  A pipe degree raises (ROADMAP A7c); ZeRO or update
+    sharding with a model or sep degree raises (ROADMAP A7b)."""
     from ..distributed.grad_comm import comm_info, resolve_policy
     from ..distributed.spmd import make_gspmd_step_from_loss
     from ..telemetry import instrument_train_step
 
-    mesh = _check_degrees(hcg)
+    if zero_stage > 0 and update_sharding:
+        raise ValueError(
+            "update_sharding composes the plain-DP regime; zero_stage>0 "
+            "already shards the optimizer state over 'sharding' — pick one")
+    if zero_stage > 0 or update_sharding:
+        _refuse_composed(hcg, f"zero_stage {zero_stage}" if zero_stage
+                         else "update_sharding")
+    mesh = _check_degrees(hcg, runs=("mp", "sep"))
     policy = resolve_policy(grad_comm)
     params0 = dict(model.named_parameters())
-
-    def loss_of(params, key, x, labels):
-        # ``params`` are the tensors ``model`` holds for this call (its own
-        # parameters, or the state's swapped in)
-        h = model.scan_blocks(model.embed_fn(x, key), key, remat=remat)
-        return model.head_loss_fn(h, labels)
+    par, seq_dim = _mesh_context(model, mesh, params0)
+    loss_of = _gpt_loss(model, par, remat)
 
     if zero_stage > 0:
-        if update_sharding:
-            raise ValueError(
-                "update_sharding composes the plain-DP regime; zero_stage>0 "
-                "already shards the optimizer state over 'sharding' — pick "
-                "one")
         from ..distributed.zero import make_zero_train_step
         inner, state0 = make_zero_train_step(
             loss_of, params0, optimizer, mesh, layer=model,
@@ -546,7 +761,7 @@ def make_gpt_train_step(model: GPTModel, optimizer, hcg=None,
     else:
         inner, state0 = make_gspmd_step_from_loss(
             loss_of, params0, optimizer, mesh, layer=model, donate=donate,
-            grad_comm=policy)
+            grad_comm=policy, seq_dim=seq_dim)
         name = "gpt"
     inner = instrument_train_step(inner, monitor, name,
                                   batch_info=_rank_batch_info(mesh),
@@ -555,7 +770,7 @@ def make_gpt_train_step(model: GPTModel, optimizer, hcg=None,
     def step(state, key, lr, x, labels):
         return inner(state, lr, key, x, labels)
 
-    if zero_stage > 0:
+    if hasattr(inner, "layout"):
         step.layout = inner.layout
     return step, state0
 
@@ -567,20 +782,29 @@ def make_sharded_gpt_train_step(cfg: GPTConfig, optimizer, hcg,
     """The GPT train step with the model built here from ``seed`` on
     ``device`` (default cuda) and each rank keeping its shards of the
     state (``zero_stage`` as sharding SPECS only: 3 shards the parameters;
-    the contractual ZeRO extras ride ``make_gpt_train_step``).  The
-    reference initialises each device's shard directly; here each rank
-    builds the whole model once (the same seed on every rank) and keeps
-    its blocks (``ROADMAP.md`` §C).  ``grad_comm`` runs in local mode (a
-    stateful policy adds a flat ``"comm_e"``).  Returns ``(step, state0)``
-    with ``step(state, lr, key, x, labels)``."""
+    the contractual ZeRO extras ride ``make_gpt_train_step``), over data,
+    sharding and model degrees.  The reference initialises each device's
+    shard directly; here each rank builds the whole model once (the same
+    seed on every rank) and keeps its blocks (``ROADMAP.md`` §C).
+    ``grad_comm`` runs in local mode (a stateful policy adds a flat
+    ``"comm_e"``).  A ``sequence_parallel`` mode or a sep degree raises,
+    as in the reference (``ROADMAP.md`` §C); ZeRO specs with a model
+    degree raise (ROADMAP A7b).  Returns ``(step, state0)`` with
+    ``step(state, lr, key, x, labels)``."""
     from .. import resolve_device
     from ..distributed.grad_comm import comm_info, resolve_policy
     from ..distributed.spmd import make_gspmd_sharded_init_step
     from ..telemetry import instrument_train_step
 
-    if cfg.sequence_parallel is not None:
-        raise NotImplementedError("sequence_parallel: ROADMAP A7b")
-    mesh = _check_degrees(hcg)
+    if cfg.sequence_parallel is not None or \
+            _mesh_degrees(hcg).get("sep", 1) > 1:
+        raise NotImplementedError(
+            "sharded init does not run sequence parallelism, as the "
+            "reference's does not (ROADMAP §C, the refusals that stay): use "
+            "make_gpt_train_step over sep ranks")
+    if zero_stage > 0:
+        _refuse_composed(hcg, f"zero_stage {zero_stage}")
+    mesh = _check_degrees(hcg, runs=("mp",))
     dev = resolve_device(device)
     model = GPTModel(cfg, device=dev,
                      generator=torch.Generator(dev).manual_seed(seed))
@@ -588,14 +812,11 @@ def make_sharded_gpt_train_step(cfg: GPTConfig, optimizer, hcg,
     def build(seed):
         return dict(model.named_parameters())
 
-    def loss_of(params, key, x, labels):
-        h = model.scan_blocks(model.embed_fn(x, key), key, remat=remat)
-        return model.head_loss_fn(h, labels)
-
+    par, _ = _mesh_context(model, mesh, build(seed))
     policy = resolve_policy(grad_comm)
     step, state0 = make_gspmd_sharded_init_step(
-        loss_of, build, optimizer, mesh, model, zero_stage=zero_stage,
-        donate=donate, seed=seed, grad_comm=policy)
+        _gpt_loss(model, par, remat), build, optimizer, mesh, model,
+        zero_stage=zero_stage, donate=donate, seed=seed, grad_comm=policy)
     return instrument_train_step(
         step, monitor, "gpt_sharded", batch_info=_rank_batch_info(mesh),
         comm=comm_info(build(seed), policy)), state0

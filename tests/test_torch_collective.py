@@ -11,8 +11,9 @@ exp(sum(log|x|)), the port exactly).  The port's collectives act in place
 on the caller's tensor and return it (``ROADMAP.md`` §C).  The hybrid
 group's layout (rank r = flat mesh position r, dp 2 x sharding 2) is held
 against the reference's mesh.  Guards: the import grep, a JAX-free
-import, ``init_parallel_env()`` without a card, and the model/pipe/sep
-degrees that wait for ROADMAP A7b/A7c.
+import, ``init_parallel_env()`` without a card, the pipe degree that
+waits for ROADMAP A7c, and the model/sep degrees that BERT's step and
+ZeRO wait for (ROADMAP A7b).
 
 The spawned ranks import this module, so it imports no JAX at its top.
 """
@@ -330,8 +331,16 @@ class TestCollectives:
         dist.all_gather(out, t, group=g)
         assert len(out) == 1 and out[0] is t
         assert dist.broadcast(t, group=g) is t
-        with pytest.raises(NotImplementedError, match="A7b"):
-            dist.split(t, (4, 4), "linear")
+        # a split over no model ranks is the dense layer (a column split
+        # over ranks: tests/test_torch_tp_layers.py)
+        from paddle_tpu_torch.nn import initializer as I
+        from paddle_tpu_torch.nn.layer.base import building
+        w = np.arange(8.0, dtype=np.float32).reshape(2, 4)
+        with building("cpu"):
+            out = dist.split(t[None], (2, 4), "linear", axis=1,
+                             weight_attr=I.Assign(w))
+        np.testing.assert_allclose(out.detach().numpy(),
+                                   t.numpy()[None] @ w, rtol=1e-6)
 
 
 class TestTopology:
@@ -374,12 +383,21 @@ class TestTopology:
                                              ("sep_degree", "A7b"),
                                              ("pp_degree", "A7c")])
     def test_model_pipe_sep_degrees_raise(self, degree, item):
+        """A pipe degree raises everywhere (A7c).  Model and sep degrees
+        run GPT (tests/test_torch_gpt_tp.py): the hybrid group takes them
+        (here it only asks for a world of two), and what still waits for
+        A7b raises: BERT's step, and GPT's ZeRO and update sharding."""
         from paddle_tpu_torch.distributed import HybridCommunicateGroup
+        from paddle_tpu_torch.models import bert as TB
         from paddle_tpu_torch.models.gpt import (GPTConfig, GPTModel,
                                                  make_gpt_train_step)
         import paddle_tpu_torch.optimizer as TO
-        with pytest.raises(NotImplementedError, match=item):
-            HybridCommunicateGroup(**{degree: 2})
+        if item == "A7c":
+            with pytest.raises(NotImplementedError, match=item):
+                HybridCommunicateGroup(**{degree: 2})
+        else:
+            with pytest.raises(ValueError, match="torch.distributed world"):
+                HybridCommunicateGroup(**{degree: 2})
         getter = {"mp_degree": "get_model_parallel_world_size",
                   "sep_degree": "get_sep_parallel_world_size",
                   "pp_degree": "get_pipe_parallel_world_size"}[degree]
@@ -388,8 +406,15 @@ class TestTopology:
                                num_attention_heads=2,
                                max_position_embeddings=16,
                                compute_dtype="float32"), device="cpu")
+        for kw in (dict(zero_stage=1), dict(update_sharding=True)):
+            with pytest.raises(NotImplementedError, match=item):
+                make_gpt_train_step(m, TO.SGD(0.1), hcg, **kw)
+        bert = TB.BertModel(TB.BertConfig(
+            vocab_size=64, hidden_size=32, num_hidden_layers=1,
+            num_attention_heads=2, max_position_embeddings=16,
+            compute_dtype="float32"), device="cpu")
         with pytest.raises(NotImplementedError, match=item):
-            make_gpt_train_step(m, TO.SGD(0.1), hcg)
+            TB.make_bert_train_step(bert, TO.SGD(0.1), hcg)
 
     def test_hybrid_group_needs_the_world_of_its_degrees(self):
         from paddle_tpu_torch.distributed import HybridCommunicateGroup

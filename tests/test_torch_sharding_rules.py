@@ -263,6 +263,57 @@ class TestSpecConstructors:
         assert sr.spec_tree_digest(tp) == jsr.spec_tree_digest(jp)
 
 
+    @pytest.mark.parametrize("vocab", [128, 129])
+    def test_model_axis_specs_equal_the_reference(self, vocab):
+        """GPT's ``_dims_mapping`` over a dp 2 x mp 2 mesh (a vocabulary
+        the degree does not divide leaves ``wte`` replicated), each
+        rank's shard against the reference's ``addressable_shards``, and
+        the spec constructors of the sequence and model axes."""
+        import jax
+        import paddle_tpu as paddle
+        from jax.sharding import NamedSharding
+        from paddle_tpu.distributed import sharding_rules as jsr
+        from paddle_tpu.models.gpt import GPTConfig, GPTModel
+        from paddle_tpu_torch.models import gpt as TG
+        cfg = dict(vocab_size=vocab, hidden_size=32, num_layers=2,
+                   num_attention_heads=4, max_position_embeddings=32,
+                   compute_dtype="float32")
+        paddle.seed(0)
+        jm = GPTModel(GPTConfig(**cfg))
+        params = {n: np.asarray(p._data) for n, p in jm.named_parameters()}
+        tm = TG.GPTModel(TG.GPTConfig(**cfg), device="meta")
+        names = ("data", "pipe", "sharding", "sep", "model")
+        jmesh = _jmesh(4, names, (2, 1, 1, 1, 2))
+        jp = jsr.build_param_specs(params, jmesh, jm, 0)
+        assert (jp["wte"][0] == "model") == (vocab == 128)
+        for r in range(4):
+            mesh = _mesh(4, names, (2, 1, 1, 1, 2), rank=r)
+            tp = sr.build_param_specs(params, mesh, tm, 0)
+            _same(tp, jp)
+            for n, p in params.items():
+                arr = jax.device_put(p, NamedSharding(jmesh, jp[n]))
+                want = {s.device: np.asarray(s.data)
+                        for s in arr.addressable_shards}[
+                            jmesh.devices.flat[r]]
+                np.testing.assert_array_equal(
+                    sr.local_shard(torch.tensor(p), tp[n], mesh).numpy(),
+                    want)
+        assert sr.sep_activation_spec() == P(None, "sep", None, None)
+        _same(sr.sep_activation_spec(3, "x", 2), jsr.sep_activation_spec(
+            3, "x", 2))
+        assert sr.without_axis(P(None, ("data", "model"), "model")) == \
+            P(None, "data", None)
+
+    def test_partition_spec_survives_pickle(self):
+        """A spec pickles whole (it crossed process boundaries as one
+        tuple entry, ``PartitionSpec((None, 'model'))``, before
+        ``__getnewargs__``)."""
+        import pickle
+        for spec in (P(), P(None), P(None, "model"), P(("data", "model"))):
+            back = pickle.loads(pickle.dumps(spec))
+            assert back == spec and type(back) is P
+
+
 # ==========================================================================
 # digests
 # ==========================================================================

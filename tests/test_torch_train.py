@@ -299,10 +299,11 @@ class TestTrainStep:
             def get_pipe_parallel_world_size(self):
                 return 2
 
-        # data and sharding degrees, ZeRO, update sharding and grad_comm
-        # are ported (tests/test_torch_dp.py, test_torch_zero.py); model
-        # and pipe degrees wait for ROADMAP A7b/A7c
-        for kw, match in ((dict(hcg=TwoWay()), "A7b"),
+        # data, sharding, model and sep degrees, ZeRO, update sharding and
+        # grad_comm are ported (tests/test_torch_dp.py, test_torch_zero.py,
+        # test_torch_gpt_tp.py); ZeRO over model ranks waits for ROADMAP
+        # A7b, pipe degrees for A7c
+        for kw, match in ((dict(hcg=TwoWay(), zero_stage=1), "A7b"),
                           (dict(hcg=TwoStages()), "A7c")):
             with pytest.raises(NotImplementedError, match=match):
                 make_gpt_train_step(tm, opt, **kw)
@@ -328,8 +329,8 @@ class TestTrainStep:
                                            n_microbatches=nmb)
             losses.append(float(step(st, 0, 3e-4, x, y)[1]))
         assert losses[0] == losses[1] == pytest.approx(float(lk), rel=1e-6)
-        with pytest.raises(NotImplementedError, match="sequence_parallel"):
-            GPTConfig(**TINY, sequence_parallel="ring")
+        assert GPTConfig(**TINY, sequence_parallel="ring"
+                         ).sequence_parallel == "ring"
         with pytest.raises(ValueError, match="sequence_parallel"):
             GPTConfig(**TINY, sequence_parallel="bogus")
         with pytest.raises(ValueError, match="remat"):
