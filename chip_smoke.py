@@ -367,6 +367,27 @@ Phases (any failure exits non-zero before the result lines):
    calls).  No kernel of the port runs here: the masks are plain int64
    PyTorch arithmetic (the reference drew them through XLA's threefry,
    not a Pallas kernel).
+25. tensor and sequence parallelism at gpt2s width (12 layers, B 8, L
+   1024, bf16): mp 2, sep 2 ring and sep 2 Ulysses on two gloo ranks
+   sharing the card against the one-rank step (losses within 1e-3
+   relative, the weights' move, B2-B4 launches a rank, the bytes a rank
+   holds, gloo's share of each step), and B2-B4 at the arms' 6-head shape
+   against their plain versions.
+26. the expert and model axes at bench widths, on gloo ranks sharing the
+   card: ERNIE-MoE at ``bench_ernie_moe``'s widths (8 experts, top-2, B 8,
+   L 512, bf16, remat on; C 1280) at ep 2 (dp 2, 4 experts a rank) and
+   dp 2 x mp 2, ep 2 in fp32 at 2 of its 6 layers (losses within 1e-4
+   relative, root flips under 1e-5, as phase 19's card against the CPU),
+   and BERT at ``bench_bert_base``'s (12 layers, B 16, L 512,
+   bf16, fused LN on, a padding mask) at mp 2; 3 steps each from the
+   one-rank step's weights: losses within 1e-3 relative of it at the
+   first step and within 1e-3 or a quarter of its drop after, ERNIE's
+   root routing flips (nothing upstream of the token routed otherwise)
+   only where the one-rank top-2 gap is under 2^-5, B2-B4
+   (and B6-B7 for BERT) launches a rank, the bytes a rank holds, each
+   step's time split into gloo and the rest, the bytes into gloo by
+   collective and the host-staged copies; B2-B4 at the two new shapes
+   against their plain versions.
 
 Then each kernel is timed at its main path's shapes beside its plain
 version, one PyTorch call computing the same function (``library_ms``,
@@ -393,7 +414,9 @@ and the faulted fleet, ``flash_fwd`` and the paged decode kernel in the
 faulted fleet's bucketed replica) and phase 21's (the three flash
 kernels in (a)'s 36 steps and, on both ranks, in (c)'s GPT and BERT
 arms; the fused LN kernels in (c)'s BERT arm) and phase 22's (the three
-flash kernels in every step of 22a and of 22b's two ranks).  The last two lines are the
+flash kernels in every step of 22a and of 22b's two ranks) and phases
+25's and 26's (the three flash kernels on every rank of their arms, the
+fused LN kernels on 26's BERT ranks).  The last two lines are the
 kernels JSON and the device JSON.
 
 Without CUDA, or run without the rest of the repository, it exits
@@ -6237,6 +6260,434 @@ def phase25(card):
     return launches
 
 
+# ------------------------------------------------------------ phase 26 --
+
+EP_B, EP_L, EP_STEPS, EP_LR = 8, 512, 3, 1e-4
+#: phase 26's arms: (name, world, degrees, kind); the fp32 and BERT arms
+#: share the ep 2 arm's two ranks
+EP_ARMS = (("ep 2", 2, {"dp_degree": 2}, "ernie"),
+           ("ep 2 fp32", 2, {"dp_degree": 2}, "ernie_fp32"),
+           ("dp 2 x mp 2", 4, {"dp_degree": 2, "mp_degree": 2}, "ernie"),
+           ("bert mp 2", 2, {"mp_degree": 2}, "bert"))
+#: the fp32 arm: ERNIE-MoE at bench width cut to 2 layers, held as phase
+#: 19 holds card against CPU (ERNIE_LOSS_TOL, root flips under ROUTE_TIE)
+EP_FP32 = dict(num_layers=2, compute_dtype="float32")
+ERNIE_C = 1280      # ceil(2 x 4096 / 8 x 1.25), rounded up to a multiple of 4
+BERT_TP = dict(vocab_size=30528, hidden_size=768, num_hidden_layers=12,
+               num_attention_heads=12, max_position_embeddings=512,
+               compute_dtype="bfloat16")
+
+
+def ep_batch():
+    """``bench_ernie_moe``'s batch shape (B 8, L 512) from RandomState(26)."""
+    rng = np.random.RandomState(26)
+    return [torch.from_numpy(rng.randint(0, ERNIE_BENCH["vocab_size"],
+                                         (EP_B, EP_L))).cuda()
+            for _ in range(2)]
+
+
+def bert_tp_batch():
+    """``bench_bert_base``'s shape (B 16, L 512) with 15% of the positions
+    labelled for MLM and a padding mask (rows 1, 6 and 11 padded from
+    position 300, 450 and 77 on): the padding key mask reaches B2-B4."""
+    rng = np.random.RandomState(26)
+    V = BERT_TP["vocab_size"]
+    ids = rng.randint(0, V, (BERT_B, BERT_L))
+    mlm = np.where(rng.rand(BERT_B, BERT_L) < 0.15,
+                   rng.randint(0, V, (BERT_B, BERT_L)), -100)
+    am = np.ones((BERT_B, BERT_L), np.int64)
+    for row, start in ((1, 300), (6, 450), (11, 77)):
+        am[row, start:] = 0
+    return [torch.from_numpy(a).cuda() for a in (
+        ids, mlm, rng.randint(0, 2, (BERT_B,)), am)]
+
+
+def bert_tp_model():
+    """``bench_bert_base``'s BERT (bf16) from seed 0 on the card."""
+    from paddle_tpu_torch.models.bert import BertConfig, BertModel
+
+    return BertModel(BertConfig(**BERT_TP), device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(0))
+
+
+@contextlib.contextmanager
+def first_routes(n):
+    """The gate probabilities, experts and slots of the first ``n``
+    ``topk_gating_indices`` calls made inside the block (one forward's
+    layers; a recompute's calls come after), and each call's C."""
+    from paddle_tpu_torch.ops import moe
+
+    calls, inner = [], moe.topk_gating_indices
+
+    def record(logits, *a, **kw):
+        out = inner(logits, *a, **kw)
+        if len(calls) < n:
+            calls.append((torch.softmax(logits.detach().float(), -1).cpu(),
+                          out[0].cpu(), out[1].cpu(), out[4]))
+        return out
+
+    moe.topk_gating_indices = record
+    try:
+        yield calls
+    finally:
+        moe.topk_gating_indices = inner
+
+
+def held_losses(got, want):
+    """Each step's loss difference from the one-rank run's, and its bound:
+    ``BF16_RTOL`` of the loss at the first step (the same weights: only
+    the order of bf16 roundings differs), then the larger of that and
+    ``DELTA_TOL`` of the one-rank run's drop over the step before.  After
+    a step the arms' weights differ (AdamW's first steps move each weight
+    by about lr whatever its gradient's size, so bf16 noise on a
+    near-zero gradient flips a step's sign; phases 21 and 25 hold that
+    move within ``DELTA_TOL`` by norm), and so, in that proportion, does
+    what the next step's loss kept of the drop."""
+    bounds = [BF16_RTOL * abs(want[0])] + [
+        max(BF16_RTOL * abs(w), DELTA_TOL * abs(p - w))
+        for p, w in zip(want, want[1:])]
+    return [abs(g - w) for g, w in zip(got, want)], bounds
+
+
+def route_flips(got, want, rows, L):
+    """Routing differences between a rank's first forward ``got`` and the
+    one-rank run's ``want`` (its ``rows`` of the global tokens, rows of
+    ``L`` positions), layer by layer.  A token whose chosen experts differ
+    is a *root* flip when nothing upstream of it differed: no token at or
+    before its position in its row was routed or dropped otherwise at an
+    earlier layer (causal attention carries such a difference forward).
+    Capacity couples the tokens, so one root flip moves other tokens'
+    slots, and a token kept in one run and dropped in the other reaches
+    the next layer with another input: those flips follow from a root
+    and need no near-tie.  Returns (flips, root flips, the largest
+    one-rank gap between the k-th and the next probability among the
+    roots, 0.0 without one, and each layer's (flips, roots))."""
+    seen, flips, roots, worst, layers = None, 0, 0, 0.0, []
+    for (_, eg, sg, C), (pw, ew, sw, _) in zip(got, want):
+        pw, ew, sw = pw[rows], ew[rows], sw[rows]
+        choice = (eg.sort(-1).values != ew.sort(-1).values).any(-1)
+        kept = (torch.where(sg < C, eg, -1).sort(-1).values
+                != torch.where(sw < C, ew, -1).sort(-1).values).any(-1)
+        root = choice if seen is None else choice & ~seen.reshape(-1)
+        flips += int(choice.sum())
+        roots += int(root.sum())
+        layers.append((int(choice.sum()), int(root.sum())))
+        if root.any():
+            k = ew.shape[-1]
+            p = pw[root].sort(-1, descending=True).values
+            worst = max(worst, float((p[:, k - 1] - p[:, k]).max()))
+        ahead = (choice | kept).reshape(-1, L).cummax(1).values
+        seen = ahead if seen is None else seen | ahead
+    return flips, roots, worst, layers
+
+
+def arm26(kind):
+    """(model, the function that makes its step, batch, MoE layers to
+    record) of an arm's kind, on the card from seed 0."""
+    if kind == "bert":
+        return bert_tp_model(), bert_tp_step, bert_tp_batch(), 0
+    model = ernie_model("cuda", **(EP_FP32 if kind == "ernie_fp32" else {}))
+    return model, ep_step, ep_batch(), model.config.num_layers
+
+
+def ep_step(model, hcg=None):
+    from paddle_tpu_torch.models.ernie_moe import make_ernie_moe_train_step
+    from paddle_tpu_torch.optimizer import AdamW
+
+    return make_ernie_moe_train_step(
+        model, AdamW(EP_LR, weight_decay=0.01), hcg)
+
+
+def bert_tp_step(model, hcg=None):
+    from paddle_tpu_torch.models.bert import make_bert_train_step
+    from paddle_tpu_torch.optimizer import AdamW
+
+    return make_bert_train_step(model, AdamW(EP_LR, weight_decay=0.01), hcg)
+
+
+def run26(step, state, batch, routes=0, warmed=None):
+    """3 steps: the first (a warm-up, its routing recorded over ``routes``
+    layers; ``warmed()`` called after it) and 2 timed; returns (losses,
+    ms/step, warm-up launches, timed launches, routing, the state)."""
+    zero_counts()
+    with first_routes(routes) as calls:
+        state, loss = step(state, EP_LR, *batch)
+        losses = [loss.item()]
+    warm = flash_counts()
+    if warmed is not None:
+        warmed()
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(1, EP_STEPS):
+        state, loss = step(state, EP_LR, *batch)
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / (EP_STEPS - 1)
+    return losses, ms, warm, flash_counts(), calls, state
+
+
+def rank26(rank, world, tmp):
+    """One rank of phase 26's world of ``world``: its arms' 3 steps (the
+    first a warm-up), the time in gloo's collectives apart from the rest,
+    the bytes and host stagings of each kind of collective, the flash and
+    fused-LN launches, the bytes the state holds, and the first step's
+    routing."""
+    import datetime
+    import pickle
+
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed.zero import per_device_state_bytes
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_parallel_env(backend="gloo", init_method=f"file://{tmp}/rdv",
+                           rank=rank, world_size=world,
+                           timeout=datetime.timedelta(seconds=600))
+    check("jax" not in sys.modules, "phase26: a rank imported jax")
+    gloo = {"s": 0.0, "calls": 0, "bytes": {}}
+    run = C._run
+
+    def timed(name, group, inputs, outputs, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(name, group, inputs, outputs, fn)
+        torch.cuda.synchronize()
+        gloo["s"] += time.perf_counter() - t0
+        gloo["calls"] += 1
+        gloo["bytes"][name] = gloo["bytes"].get(name, 0) + sum(
+            t.numel() * t.element_size() for t in inputs if t is not None)
+
+    C._run = timed
+    out = {}
+    for name, w, hc, kind in EP_ARMS:
+        if w != world:
+            continue
+        set_flags({"FLAGS_use_fused_ln": kind == "bert"})
+        model, build, batch, moe_layers = arm26(kind)
+        step, state = build(model, fleet_hcg(**hc))
+        mesh = step.layout.mesh
+        staged0 = dict(C.HOST_STAGING)
+
+        def warmed():
+            gloo.update(s=0.0, calls=0, bytes={})
+            staged0.update(C.HOST_STAGING)
+
+        losses, ms, warm, launches, routes, state = run26(
+            step, state, batch, moe_layers, warmed)
+        n = EP_STEPS - 1
+        out[name] = dict(
+            losses=losses, ms=ms, gloo_ms=1e3 * gloo["s"] / n,
+            calls=gloo["calls"] / n,
+            bytes={k: v // n for k, v in gloo["bytes"].items()},
+            staged={k: (C.HOST_STAGING[k] - staged0[k]) // n
+                    for k in staged0},
+            warm=warm, launches=launches, routes=routes,
+            data=mesh.coord.get("data", 0), shape=dict(mesh.shape),
+            param_bytes=sum(v.numel() * v.element_size()
+                            for v in state["params"].values()),
+            slot_bytes=per_device_state_bytes(state),
+            split={k: [e for e in s] for k, s in
+                   step.layout.specs["params"].items()})
+        set_flags({"FLAGS_use_fused_ln": False})
+        del model, step, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    C._run = run
+    with open(f"{tmp}/rank{world}_{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase26_flash(card):
+    """B2-B4 at the shapes this phase gives them first: BERT's at mp 2
+    (B 16, L 512, 6 heads, not causal, the padding key mask) and
+    ERNIE-MoE's at ep 2 (a rank's B 4, L 512, all 12 heads, causal),
+    against their plain versions."""
+    from paddle_tpu_torch.ops import attention as A
+
+    dt, D = torch.bfloat16, 64
+    for label, B, nh, causal, masked in (
+            ("BERT mp 2", BERT_B, 6, False, (300, 512)),
+            ("ERNIE-MoE ep 2", EP_B // 2, 12, True, False)):
+        q, k, v, do, km = flash_inputs(B, EP_L, nh, D, dt, masked, seed=26)
+        scale = 1.0 / D ** 0.5
+        qk = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = A._FlashAttention.apply(*qk, km, FLASH_SEED, causal, scale,
+                                      0.0)
+        grads = torch.autograd.grad(out, qk, do)
+        qp = [t.clone().requires_grad_() for t in (q, k, v)]
+        out_p, _ = A.flash_fwd_ref(*qp, km, FLASH_SEED, causal, scale, 0.0)
+        grads_p = torch.autograd.grad(out_p, qp, do)
+        torch.cuda.synchronize()
+        err = (out.float() - out_p.float()).abs().max().item()
+        gerr = [rel_err(a, b) for a, b in zip(grads, grads_p)]
+        check(err <= TOL[dt] and max(gerr) <= GRAD_TOL[dt],
+              f"phase26 flash at {label}'s shape: O err {err}, grads "
+              f"{gerr}")
+        say(f"phase26 flash kernels at {label}'s shape (B {B}, L {EP_L}, "
+            f"{nh} heads, hd 64, bf16, {'causal' if causal else 'not causal, padding key mask'}) on {card}: O max abs err "
+            f"{err:.3e} (tol {TOL[dt]}), dq/dk/dv err / max|grad| "
+            + "/".join(f"{e:.3e}" for e in gerr) + f" (tol {GRAD_TOL[dt]})")
+
+
+def solo26(kind):
+    """The one-rank step of an arm's kind on the same weights and batch:
+    losses, ms/step, launches, routing, the layers and the parameters'
+    bytes a tensor."""
+    from paddle_tpu_torch.core.flags import set_flags
+
+    set_flags({"FLAGS_use_fused_ln": kind == "bert"})
+    model, build, batch, moe_layers = arm26(kind)
+    layers = getattr(model.config, "num_layers", None) or \
+        model.config.num_hidden_layers
+    step, state = build(model)
+    losses, ms, warm, launches, routes, state = run26(step, state, batch,
+                                                      moe_layers)
+    sizes = {n: p.numel() * p.element_size()
+             for n, p in state["params"].items()}
+    set_flags({"FLAGS_use_fused_ln": False})
+    del model, step, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, ms=ms, warm=warm, launches=launches,
+                routes=routes, sizes=sizes, layers=layers)
+
+
+def phase26(card):
+    """ERNIE-MoE over the expert and model axes and BERT over the model
+    axis at their bench widths, on gloo ranks sharing the card: (a)
+    ``bench_ernie_moe``'s widths (vocab 30528, H 768, 6 layers, 12 heads,
+    8 experts, top-2, bf16, fp32 parameters, AdamW 1e-4, B 8, L 512, remat
+    on) at ep 2 (dp 2, 4 experts a rank) and dp 2 x mp 2, and at ep 2 in
+    fp32 cut to 2 layers; (b) ``bench_bert_base``'s widths (12 layers, B
+    16, L 512, bf16, fused LN on, a padding mask) at mp 2.  Each arm takes
+    3 steps from the one-rank step's weights and holds its losses to it.
+    Returns the ranks' flash and fused-LN launches (fwd, dq, dkv, ln fwd,
+    ln bwd)."""
+    import tempfile
+
+    import pickle
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    phase26_flash(card)
+    solo = {kind: solo26(kind) for kind in ("ernie", "ernie_fp32", "bert")}
+    tmp = tempfile.mkdtemp(prefix="phase26_")
+    say("phase26: the ranks share this one card over gloo (NCCL refuses two "
+        "ranks on one device, so NCCL's arm of the expert exchange cannot "
+        "run here); every hop goes through the host")
+    t_ranks = time.perf_counter()
+    for world in (2, 4):
+        mp.start_processes(rank26, args=(world, tmp), nprocs=world,
+                           join=True, start_method="spawn")
+    t_ranks = time.perf_counter() - t_ranks
+    ranks = {w: [] for w in (2, 4)}
+    for w in (2, 4):
+        for r in range(w):
+            with open(f"{tmp}/rank{w}_{r}.pkl", "rb") as f:
+                ranks[w].append(pickle.load(f))
+    launches = [0] * 5
+    for name, world, hc, kind in EP_ARMS:
+        bert, fp32 = kind == "bert", kind == "ernie_fp32"
+        one = solo[kind]
+        dp, mp_ = hc.get("dp_degree", 1), hc.get("mp_degree", 1)
+        nl = one["layers"]
+        # remat on: each step's forward twice (the recompute), its
+        # backward once; the fused LN twice a layer a forward
+        want = [2 * nl, nl, nl] + ([4 * nl, 2 * nl] if bert else [0, 0])
+        tie = ROUTE_TIE if fp32 else BF16_TIE
+        for r, rk in enumerate(ranks[world]):
+            a = rk[name]
+            if fp32:    # as phase 19's card against the CPU, every step
+                a["diffs"] = [abs(g - w) for g, w in
+                              zip(a["losses"], one["losses"])]
+                a["bounds"] = [ERNIE_LOSS_TOL * abs(w)
+                               for w in one["losses"]]
+            else:
+                a["diffs"], a["bounds"] = held_losses(a["losses"],
+                                                      one["losses"])
+            diffs, bounds = a["diffs"], a["bounds"]
+            check(np.isfinite(a["losses"]).all() and all(
+                d <= b for d, b in zip(diffs, bounds)),
+                  f"phase26 {name} rank {r}: losses {a['losses']} vs one "
+                  f"rank {one['losses']}: differences {diffs}, bounds "
+                  f"{bounds}")
+            check(a["warm"] == want and
+                  a["launches"] == [x * (EP_STEPS - 1) for x in want],
+                  f"phase26 {name} rank {r}: flash/LN launches "
+                  f"{a['launches']} (warm-up {a['warm']}), want "
+                  f"{want} a step")
+            launches = [s + u + w for s, u, w in
+                        zip(launches, a["launches"], a["warm"])]
+            if not bert:
+                n = EP_B * EP_L // dp
+                rows = slice(a["data"] * n, (a["data"] + 1) * n)
+                flips, roots, worst, layers = route_flips(
+                    a["routes"], one["routes"], rows, EP_L)
+                a["flips"], a["roots"], a["worst"] = flips, roots, worst
+                check(len(a["routes"]) == nl and all(
+                    c == ERNIE_C for *_, c in a["routes"]),
+                    f"phase26 {name} rank {r}: capacities "
+                    f"{[c for *_, c in a['routes']]}, want {ERNIE_C}")
+                check(worst < tie,
+                      f"phase26 {name} rank {r}: {roots} root routing "
+                      f"flips (of {flips}) against one rank, one with a "
+                      f"top-2 gap of {worst} (>= {tie}); by layer "
+                      f"(flips, roots) {layers}")
+        a = ranks[world][0][name]
+        split = {k for k, s in a["split"].items() if any(
+            e is not None for e in s)}
+        held = sum(b // (dp if "expert" in k else mp_) if k in split else b
+                   for k, b in one["sizes"].items())
+        total = sum(one["sizes"].values())
+        check(a["param_bytes"] == held and a["slot_bytes"] == 2 * held,
+              f"phase26 {name}: a rank holds {a['param_bytes']} bytes of "
+              f"parameters and {a['slot_bytes']} of slots, want {held} and "
+              f"{2 * held} (split {sorted(split)})")
+        extra = ""
+        if not bert:
+            E, H = ERNIE_BENCH["num_experts"], ERNIE_BENCH["hidden_size"]
+            extra = (f"; C {ERNIE_C}, the exchange "
+                     f"{E * ERNIE_C * H * (4 if fp32 else 2)} "
+                     f"bytes each way a layer (reduce-scatter in, "
+                     f"all-gather out; remat repeats the forward's pair), "
+                     f"routing flips vs one rank, root/all, "
+                     + ", ".join(f"{rk[name]['roots']}/{rk[name]['flips']}"
+                                 for rk in ranks[world])
+                     + " of " + str(EP_B * EP_L // dp * nl)
+                     + " token-layers a rank (largest one-rank top-2 gap "
+                     f"among the roots "
+                     f"{max(rk[name]['worst'] for rk in ranks[world]):.3e},"
+                     f" bound {tie})")
+        say(f"phase26 {name} ({'bench_bert_base' if bert else 'bench_ernie_moe'}"
+            f"'s widths, {nl} layers, {world} gloo ranks) on {card}: losses "
+            f"{[round(v, 5) for v in a['losses']]} vs one rank "
+            f"{[round(v, 5) for v in one['losses']]} (differences a step, "
+            f"largest over the ranks, "
+            + "/".join(f"{max(rk[name]['diffs'][i] for rk in ranks[world]):.3e}"
+                       for i in range(EP_STEPS))
+            + ", bounds " + "/".join(f"{b:.3e}" for b in a["bounds"])
+            + f"); ms/step rank 0 {a['ms']:.3f} = gloo "
+            f"{a['gloo_ms']:.3f} ({a['calls']:.0f} collectives a step) + "
+            f"the rest {a['ms'] - a['gloo_ms']:.3f} (ranks: "
+            + ", ".join(f"{rk[name]['ms']:.3f} = {rk[name]['gloo_ms']:.3f} + "
+                        f"{rk[name]['ms'] - rk[name]['gloo_ms']:.3f}"
+                        for rk in ranks[world])
+            + f"); one rank {one['ms']:.3f} ms/step; bytes a step into "
+            f"gloo by collective {a['bytes']}; host-staged copies a step "
+            f"{a['staged']['copies']} ({a['staged']['bytes'] / 2**20:.1f} "
+            f"MiB); flash fwd/dq/dkv and LN fwd/bwd a rank a step "
+            f"{want}; parameters a rank {a['param_bytes']} bytes "
+            f"({a['param_bytes'] / total:.3f}x one rank's {total}), AdamW "
+            f"slots {a['slot_bytes']}" + extra)
+    say(f"phase26 took {time.perf_counter() - t0:.1f} s on {card} (the ranks "
+        f"{t_ranks:.1f} s); flash fwd/dq/dkv and LN fwd/bwd on the ranks "
+        f"{launches}")
+    return launches
+
+
 def bytes_ops_bound(nbytes, flops):
     """(ms, "bytes"|"operations") of the larger bound; fp32 flops."""
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -6508,6 +6959,10 @@ def main():
     torch.cuda.empty_cache()
     tp_launches = phase25(card)
     lap("phase25")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ep_launches = phase26(card)
+    lap("phase26")
 
     ms, plain_ms, library_ms, bound_ms, bound_by, _ = t = time_pack(main_pack)
     say_pack_time("bf16 pools at the phase-3 shapes", t, card)
@@ -6565,7 +7020,9 @@ def main():
         f"flash fwd/dq/dkv {dp_launches[:3]}, fused LN fwd/bwd "
         f"{dp_launches[3:]}; phase 22's crash-consistent training: flash "
         f"fwd/dq/dkv {ckpt_launches}; phase 25's tensor and sequence "
-        f"parallelism: flash fwd/dq/dkv {tp_launches}")
+        f"parallelism: flash fwd/dq/dkv {tp_launches}; phase 26's expert "
+        f"and model axes: flash fwd/dq/dkv {ep_launches[:3]}, fused LN "
+        f"fwd/bwd {ep_launches[3:]}")
     say(card)                        # the nvidia-smi name,power.limit line
     pack = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
@@ -6574,11 +7031,12 @@ def main():
                        launches + gen_launches[0] + tel_launches[0]
                        + moe_launches[0] + fleet_launches[0], pack)]
     flash_launches = tuple(
-        a + b + c + d + e + f for a, b, c, d, e, f in zip(
+        a + b + c + d + e + f + g for a, b, c, d, e, f, g in zip(
             (flash_launches[0] + gen_launches[2] + fleet_launches[1],
              *flash_launches[1:]), tel_launches[2], moe_launches[1:4],
-            dp_launches[:3], ckpt_launches, tp_launches))
-    ln_launches = tuple(a + b for a, b in zip(ln_launches, dp_launches[3:]))
+            dp_launches[:3], ckpt_launches, tp_launches, ep_launches[:3]))
+    ln_launches = tuple(a + b + c for a, b, c in zip(
+        ln_launches, dp_launches[3:], ep_launches[3:]))
     rows += [kernel_row(name, FLASH_SOURCE, FLASH_REPLACES[name], n, r)
              for (name, r), n in zip(flash.items(), flash_launches)]
     rows += [kernel_row(name, FUSED_SOURCE, FUSED_REPLACES[name], n, r)

@@ -2,19 +2,21 @@
 ``paddle_tpu/distributed``; reference: python/paddle/distributed/).
 
 Hybrid-parallel training on ``torch.distributed``, one process per rank:
-the collective API (with the autograd collectives of tensor and sequence
-parallelism), the hybrid group and ``fleet`` (the tensor-parallel layers
-in ``fleet.meta_parallel``), the gradient communication policies, ZeRO
-stages 1-3 with offload, weight-update sharding and the data × sharding
-× sep × model train steps.  Crash-consistent training rides
-``checkpoint`` (sharded saves, resumes on another layout), ``store``
-(the TCP store), ``fleet.elastic`` (membership) and ``launch``
-(``python -m paddle_tpu_torch.distributed.launch``).  ``localsgd``,
-``dgc``, ``auto_parallel``, the expert axis and the pipeline engine wait
+the collective API (with the autograd collectives of tensor, sequence
+and expert parallelism), the hybrid group and ``fleet`` (the
+tensor-parallel layers in ``fleet.meta_parallel``), the expert exchange
+(``utils``: ``global_scatter``/``global_gather`` and their ragged
+forms), the gradient communication policies, ZeRO stages 1-3 with
+offload, weight-update sharding and the data × sharding × sep × model
+train steps (expert weights held over the data axis).  Crash-consistent
+training rides ``checkpoint`` (sharded saves, resumes on another
+layout), ``store`` (the TCP store), ``fleet.elastic`` (membership) and
+``launch`` (``python -m paddle_tpu_torch.distributed.launch``).
+``localsgd``, ``dgc``, ``auto_parallel`` and the pipeline engine wait
 for their slices (ROADMAP A7b, A7c).
 """
 
-from . import checkpoint, env, fleet  # noqa: F401
+from . import checkpoint, env, fleet, utils  # noqa: F401
 from .collective import (Group, ReduceOp, all_gather, all_gather_object,  # noqa: F401
                          all_reduce, alltoall, alltoall_single, barrier, broadcast,
                          broadcast_object_list, destroy_process_group, get_group,

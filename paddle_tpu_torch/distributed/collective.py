@@ -20,7 +20,12 @@ all-reduce forward and identity backward), :func:`gather_along` (an
 all-gather along a dim, reduce-scatter backward), :func:`split_along`
 (its transpose), :func:`all_to_all_along` (an all-to-all between two
 dims, its inverse backward) and :func:`ring_exchange` (send to the next
-rank of a group, receive from the previous one).
+rank of a group, receive from the previous one).  The expert axis adds
+:func:`reduce_scatter_along` (a reduce-scatter along a dim, all-gather
+backward), :func:`sum_over_group` (an all-reduce whose gradient is
+all-reduced too: every rank's loss reads the sum) and
+:func:`all_to_all_uneven` (an all-to-all of rows with per-rank counts,
+``distributed/utils.py``'s ragged exchange).
 """
 
 from __future__ import annotations
@@ -37,8 +42,8 @@ _groups = {}
 #: collectives gloo refuses on CUDA tensors: under gloo their CUDA
 #: operands are copied through pinned host buffers (never under NCCL)
 _GLOO_HOST_STAGED = frozenset({
-    "all_gather", "reduce_scatter", "all_to_all", "scatter", "send",
-    "recv", "ring_exchange"})
+    "all_gather", "reduce_scatter", "all_to_all", "all_to_all_uneven",
+    "scatter", "send", "recv", "ring_exchange"})
 
 #: host staging done under gloo: copies (each direction counts) and bytes
 HOST_STAGING = {"copies": 0, "bytes": 0}
@@ -275,6 +280,26 @@ def all_to_all_rows(x, group: Group):
     out = torch.empty_like(x)
     _run("all_to_all", group, [x], [out],
          lambda i, o: dist.all_to_all_single(o[0], i[0], group=group.pg))
+    return out
+
+
+def all_to_all_uneven(x, send_counts, recv_counts, group: Group):
+    """Rows of ``x`` (dim 0) exchanged with uneven counts: the first
+    ``send_counts[0]`` rows go to the group's first rank, the next
+    ``send_counts[1]`` to its second, and so on; returns the
+    ``sum(recv_counts)`` rows received, in group order
+    (``recv_counts[q]`` from rank q).  The counts are host integers."""
+    import torch.distributed as dist
+    send_counts = [int(c) for c in send_counts]
+    recv_counts = [int(c) for c in recv_counts]
+    if _solo(group):
+        return x[:send_counts[0]].clone()
+    x = x[:sum(send_counts)].contiguous()
+    out = torch.empty((sum(recv_counts),) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    _run("all_to_all_uneven", group, [x], [out],
+         lambda i, o: dist.all_to_all_single(o[0], i[0], recv_counts,
+                                             send_counts, group=group.pg))
     return out
 
 
@@ -519,6 +544,28 @@ class _GatherAlong(torch.autograd.Function):
         return reduce_scatter_dim(g, ctx.dim, ctx.group), None, None
 
 
+class _ReduceScatterAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return reduce_scatter_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g, ctx.dim, ctx.group), None, None
+
+
+class _SumOverGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _reduced(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduced(g, ctx.group), None
+
+
 class _SplitAlong(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group):
@@ -576,6 +623,21 @@ def gather_along(x, dim: int, group: Group):
     """The ranks' ``x`` concatenated along ``dim`` in group order; the
     gradient is reduce-scattered back along ``dim``."""
     return x if _solo(group) else _GatherAlong.apply(x, dim, group)
+
+
+def reduce_scatter_along(x, dim: int, group: Group):
+    """This rank's block along ``dim`` of the sum of the ranks' ``x``; the
+    gradient is all-gathered back (the transpose of :func:`gather_along`).
+    """
+    return x if _solo(group) else _ReduceScatterAlong.apply(x, dim, group)
+
+
+def sum_over_group(x, group: Group):
+    """The sum of the ranks' ``x`` on every rank; the gradient is the sum
+    of the ranks' gradients, as when every rank's loss reads the sum and
+    the step averages the ranks' gradients (a global mean over the batch
+    group, the MoE gate's mean probability)."""
+    return x if _solo(group) else _SumOverGroup.apply(x, group)
 
 
 def split_along(x, dim: int, group: Group):

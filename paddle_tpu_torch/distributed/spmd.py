@@ -16,6 +16,12 @@ collectives.  Here every rank runs the step on its own process
   rank's block (the model's own collectives run the tensor parallelism;
   its gradient is the block's), and everything below treats the block
   as the whole tensor (``sharding_rules.without_axis``);
+- so is a parameter whose spec splits a dim over the data axis (an
+  expert weight, ``{1: "data"}``): one rank holds it, every rank's tokens
+  already gave it gradient through the expert exchange's backward, and
+  each rank's loss is its own mean, so its gradient is that sum over the
+  grad ranks' count, with no all-reduce over the axis that splits it
+  (still a mean over any grad axis that does not);
 - the loss is the mean over the data × sharding × sep ranks of each
   rank's mean (equal counts: the global mean; the model ranks compute
   the same loss); the gradients are the mean over those ranks (one flat
@@ -30,7 +36,8 @@ collectives.  Here every rank runs the step on its own process
 A mesh of one rank (or none) takes the one-device step: the loss and its
 gradients, then ``optimizer.update``, with nothing to communicate.  ZeRO
 and its stage-2/3 layouts compose with the data and sharding axes only
-(over model or sep ranks they raise: ROADMAP A7b).  ``spmd_pipeline*``
+(over model or sep ranks, or with expert weights held over the data
+axis, they raise: ROADMAP A7b).  ``spmd_pipeline*``
 and ``ensure_varying`` wait for ROADMAP A7c.
 """
 
@@ -47,6 +54,11 @@ from .sharding_rules import (PartitionSpec, _entry_axes, batch_spec,
                              gather_full, local_shard, replicated_spec,
                              spec_shards, without_axis)
 from .topology import GRAD_AXES
+
+#: the axes a parameter may be held on as this rank's block and computed
+#: on there: the model axis (tensor parallelism) and the data axis
+#: (expert parallelism); "sharding" in a spec is ZeRO's, gathered
+HELD_AXES = ("model", "data")
 
 
 class _Thunk(nn.Module):
@@ -87,15 +99,18 @@ def _rows(batch, R: int, idx: int, skip=(), dim: int = 0):
     return tuple(x if i in skip else one(x) for i, x in enumerate(batch))
 
 
-def _model_block(t, spec, mesh):
-    """This rank's block of ``t`` along the dims ``spec`` puts on the
-    model axis (``t`` itself when none is split)."""
-    only = PartitionSpec(*(e if "model" in _entry_axes(e) else None
-                           for e in spec))
+def _held_block(t, spec, mesh):
+    """This rank's block of ``t`` along the dims ``spec`` puts on a held
+    axis (``HELD_AXES``; ``t`` itself when none is split)."""
+    only = PartitionSpec(*(tuple(a for a in _entry_axes(e)
+                                 if a in HELD_AXES) or None for e in spec))
     if not spec_shards(only, mesh):
         return t
-    return local_shard(t.detach(), PartitionSpec(
-        *("model" if e is not None else None for e in only)), mesh)
+    return local_shard(t.detach(), only, mesh)
+
+
+def _without_held(spec):
+    return without_axis(without_axis(spec, "model"), "data")
 
 
 def _trainable(params0, layer):
@@ -202,24 +217,44 @@ def _reduce_scatter_grads(grads, s_specs, mesh, group, R: int):
     return out
 
 
-def _clip_shards(clip, grads, specs, mesh, model_split=()):
+def _clip_shards(clip, grads, specs, mesh, model_split=(),
+                 expert_split=()):
     """The optimizer's clip over gradients held as shards under ``specs``
-    (or as model-axis blocks: ``model_split``), with whole-tensor
-    semantics (``nn/clip.py``)."""
+    (or as model-axis blocks: ``model_split``; data-axis expert blocks:
+    ``expert_split``), with whole-tensor semantics (``nn/clip.py``)."""
     if clip is None:
         return grads
     split = {n for n in grads if _sharded_dim(specs[n], mesh) is not None}
-    model_split = {n for n in model_split if n in grads}
-    if split and model_split:
+    held = [(names, axis) for names, axis in
+            ((split, "sharding"), ({n for n in model_split if n in grads},
+                                   "model"),
+             ({n for n in expert_split if n in grads}, "data")) if names]
+    if len(held) > 1:
         raise NotImplementedError(
-            "a gradient clip over tensors split over both the sharding and "
-            "the model axes waits for ROADMAP A7b")
-    if model_split:
-        return clip._clip_shards(grads, model_split,
-                                 mesh.axis_group("model"))
-    if not split:
+            "a gradient clip over tensors split over more than one of the "
+            "sharding, model and expert axes waits for ROADMAP A7b")
+    if not held:
         return clip._clip_pytree(grads)
-    return clip._clip_shards(grads, split, mesh.axis_group("sharding"))
+    names, axis = held[0]
+    return clip._clip_shards(grads, names, mesh.axis_group(axis))
+
+
+def _mean_held(grads, mesh, G: int):
+    """The expert blocks' gradients: each already sums every rank's
+    tokens over the axis that splits it; all-reduced over the other grad
+    axes and divided by the grad ranks' count ``G``."""
+    from .collective import ReduceOp, all_reduce
+    if not grads:
+        return grads
+    group, _ = mesh.batch_group(tuple(a for a in GRAD_AXES
+                                      if a not in HELD_AXES))
+    out = {}
+    for n, g in grads.items():
+        g = g.float()
+        if group.nranks > 1:
+            g = all_reduce(g.contiguous(), ReduceOp.SUM, group)
+        out[n] = (g / G).to(grads[n].dtype)
+    return out
 
 
 def _rank_loss_and_grads(loss_of, params, p_specs, p_split, mesh, holder,
@@ -282,8 +317,9 @@ def _make_mesh_step(loss_of, params0, optimizer, mesh, layer, p_specs,
     skipped on every rank) and the stage-2 reduce-scatter.
     ``comm_spec``: the spec of the flat ``comm_e`` residual.
     ``seq_dim``: the batch tensors' sequence dim the sep ranks split.
-    ``held``: the names of ``params0`` that already are this rank's model
-    blocks (tensor-parallel layers).  Returns ``(step, state0)`` with
+    ``held``: the names of ``params0`` that already are this rank's blocks
+    (tensor-parallel layers, an expert layer after ``set_mesh``).
+    Returns ``(step, state0)`` with
     ``step(state, lr, *batch) -> (state, loss)``; off ZeRO,
     ``step.layout`` is the state's checkpoint ``Layout`` (each leaf's spec
     over the whole mesh, the model axis included)."""
@@ -293,16 +329,19 @@ def _make_mesh_step(loss_of, params0, optimizer, mesh, layer, p_specs,
     ggroup, _ = mesh.batch_group(GRAD_AXES)
     R, G = group.nranks, ggroup.nranks
     S, sidx = mesh.shape.get("sep", 1), mesh.coord.get("sep", 0)
-    model_split = {n for n in params0
-                   if mesh.shape.get("model", 1) > 1 and any(
-                       "model" in _entry_axes(e) for e in p_specs[n])}
+
+    def on(axis):
+        return {n for n in params0 if mesh.shape.get(axis, 1) > 1 and any(
+            axis in _entry_axes(e) for e in p_specs[n])}
+
+    model_split, expert_split = on("model"), on("data")
     trainable = _trainable(params0, layer)
     whole_specs = (dict(p_specs), dict(s_specs))
-    # from here on a model-axis block stands for its whole tensor
-    params0 = {n: (p if n in held else _model_block(p, p_specs[n], mesh))
+    # from here on a held block stands for its whole tensor
+    params0 = {n: (p if n in held else _held_block(p, p_specs[n], mesh))
                for n, p in params0.items()}
-    p_specs = {n: without_axis(sp) for n, sp in p_specs.items()}
-    s_specs = {n: without_axis(sp) for n, sp in s_specs.items()}
+    p_specs = {n: _without_held(sp) for n, sp in p_specs.items()}
+    s_specs = {n: _without_held(sp) for n, sp in s_specs.items()}
     dev = next(iter(params0.values())).device
     p_split = {n: spec_shards(p_specs[n], mesh) for n in params0}
     s_split = {n: spec_shards(s_specs[n], mesh) for n in params0}
@@ -345,6 +384,10 @@ def _make_mesh_step(loss_of, params0, optimizer, mesh, layer, p_specs,
         raise NotImplementedError(
             "ZeRO layouts over model or sep ranks wait for ROADMAP A7b "
             "(ZeRO composed with tensor and sequence parallelism)")
+    if (zero or rs_layout) and expert_split:
+        raise NotImplementedError(
+            "ZeRO layouts with an expert axis wait for ROADMAP A7b item 3 "
+            "(ZeRO composed with expert parallelism)")
 
     def step(state, lr, *batch):
         if not donate:
@@ -359,8 +402,11 @@ def _make_mesh_step(loss_of, params0, optimizer, mesh, layer, p_specs,
         if zero:
             inv = torch.where(scale > 0, 1.0 / scale, torch.zeros_like(scale))
             grads = {n: g.float() * inv for n, g in grads.items()}
+        experts = _mean_held({n: grads.pop(n) for n in expert_split
+                              if n in grads}, mesh, G)
         grads = (_reduce_scatter_grads(grads, s_specs, mesh, group, R)
                  if rs_layout else _mean_all(grads, ggroup, G))
+        grads.update(experts)
         found_inf = _found_inf(grads, group) if zero else None
         comm_state = {}
         if policy.name != "fp32":
@@ -379,7 +425,7 @@ def _make_mesh_step(loss_of, params0, optimizer, mesh, layer, p_specs,
                        local_shard(params[n], s_specs[n], mesh))
                    for n in trainable}
             grads = _clip_shards(optimizer._grad_clip, grads, s_specs, mesh,
-                                 model_split)
+                                 model_split, expert_split)
             new_upd, new_opt = optimizer._apply_update(
                 grads, {"step": state["opt"]["step"],
                         "slots": {n: state["opt"]["slots"][n]
@@ -670,22 +716,24 @@ def make_spmd_train_step(layer, loss_fn, optimizer, hcg, zero_stage: int = 0,
 
 
 def _held_blocks(params0, mesh):
-    """The parameters a tensor-parallel layer already holds as its
-    model-axis block (``is_distributed``; none off a model mesh)."""
-    if mesh is None or mesh.shape.get("model", 1) <= 1:
+    """The parameters a layer already holds as its block of a held axis
+    (``is_distributed``: the tensor-parallel layers, an expert layer
+    after ``set_mesh``; none on one rank)."""
+    if _is_solo(mesh):
         return set()
     return {n for n, p in params0.items()
             if getattr(p, "is_distributed", False) is True}
 
 
 def _held_spec(p, spec, mesh):
-    """The whole tensor's spec of a held block: ``spec`` with "model" on
-    the dims its ``_dims_mapping`` names (the block's own shape cannot
-    tell whether the degree divides the whole)."""
+    """The whole tensor's spec of a held block: ``spec`` with each held
+    axis of more than one rank on the dims its ``_dims_mapping`` names
+    (the block's own shape cannot tell whether the degree divides the
+    whole)."""
     entries = list(spec) + [None] * (p.dim() - len(spec))
     for d, axis in getattr(p, "_dims_mapping", {}).items():
-        if axis == "model":
-            entries[int(d)] = "model"
+        if axis in HELD_AXES and mesh.shape.get(axis, 1) > 1:
+            entries[int(d)] = axis
     return PartitionSpec(*entries)
 
 

@@ -16,6 +16,21 @@ expert rows as the gather's every-expert form.  The attention half,
 the KV-cache loops and the weight casts are ``gpt.StackedDecoder``'s, so
 the model serves through the four engines and ``generate()`` by the same
 contract as ``GPTModel``.
+
+Training runs over a hybrid group of ``data`` (the expert axis,
+``config.expert_axis``'s default) and ``model`` ranks, alone or together
+(:func:`make_ernie_moe_train_step`).  A rank holds the reference's
+``addressable_shards[r]`` of every parameter (``DIMS_MAPPING``): the
+attention half splits over the model ranks as GPT's does
+(``gpt.MeshContext``: the head-aligned QKV gather, ``proj``
+row-parallel), ``wte`` over the vocabulary (the tied head's loss is
+``ops/loss.py``'s vocabulary-parallel mean), and the experts over the
+data ranks (``{1: "data"}``: rank j holds experts [j·E/R, (j+1)·E/R) of
+every layer).  The MoE half is replicated over the model ranks: every
+model rank routes the same tokens and holds the same experts.  Routing is
+one routing of the global batch and the experts run on every rank's
+slots (``ops/moe.py``); the expert weights' gradients reach the step
+already summed over the ranks' tokens (``distributed/spmd.py``).
 """
 
 from __future__ import annotations
@@ -30,13 +45,16 @@ from .. import resolve_device
 from ..ops.attention import flash_attention
 from ..ops.loss import softmax_cross_entropy_mean
 from ..ops.moe import moe_ffn, moe_ffn_gather, moe_ffn_indices
-from .gpt import _COMPUTE_DTYPES, StackedDecoder, _mesh_degrees
+from ..ops.loss import vocab_parallel_cross_entropy_mean
+from .gpt import (_COMPUTE_DTYPES, StackedDecoder, _check_degrees,
+                  _mesh_context, _mesh_degrees, _rank_batch_info,
+                  _refuse_composed, mark_dims_mapping)
 
 
 class ErnieMoeConfig:
     """The reference's config.  ``expert_axis`` names the mesh axis of the
-    experts (a mesh of more than one device raises, ROADMAP A7b);
-    ``scan_unroll`` has no effect on the port's loop over layers."""
+    experts ("data"; an axis the batch is not split over raises, ROADMAP
+    A7b); ``scan_unroll`` has no effect on the port's loop over layers."""
 
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
                  num_attention_heads=12, num_experts=8, top_k=2,
@@ -102,6 +120,7 @@ class ErnieMoeModel(StackedDecoder):
         self.lnf_w = ones([H])
         self.lnf_b = zeros([H])
         self._casts = {}
+        mark_dims_mapping(self, dims_mapping(c))
 
     @staticmethod
     def stacked_param_names():
@@ -144,35 +163,41 @@ class ErnieMoeModel(StackedDecoder):
 
     # --------------------------------------------------------- training --
     # As GPTModel's, these read the module's own parameters (or the
-    # state's, swapped in by a train step that does not donate).
+    # state's, swapped in by a train step that does not donate, or this
+    # rank's blocks over a mesh).
 
-    def block_fn(self, l, h, mesh=None):
-        """Layer ``l``: pre-LN causal flash attention, then the routed FFN;
-        returns (h, aux_loss)."""
-        q, k, v = self._block_qkv(l, h)
-        h = self._attn_residual(l, h, flash_attention(q, k, v, causal=True))
+    def block_fn(self, l, h, mesh=None, par=None):
+        """Layer ``l``: pre-LN causal flash attention (this rank's nh/mp
+        heads under a model-parallel ``par``), then the routed FFN (over
+        ``mesh``'s batch and expert ranks); returns (h, aux_loss)."""
+        q, k, v = self._block_qkv(l, h, par)
+        att = (flash_attention(q, k, v, causal=True) if par is None
+               else par.attention(q, k, v))
+        h = self._attn_residual(l, h, att, par)
         return self._moe_residual(l, h, mesh=mesh)
 
-    def scan_blocks(self, h, mesh=None, remat=True):
+    def scan_blocks(self, h, mesh=None, remat=True, par=None):
         """All layers in order; returns (h, aux summed over layers in
         fp32).  ``remat`` recomputes each block in the backward
         (``torch.utils.checkpoint``); routing has no jitter here, so the
-        recompute routes the same."""
+        recompute routes the same, and over a mesh it repeats the block's
+        collectives in the same order on every rank."""
         if remat not in (False, True):
             raise ValueError(f"remat must be False or True, got {remat!r}")
         aux_sum = torch.zeros((), dtype=torch.float32, device=h.device)
         for l in range(self.config.num_layers):
             if remat:
-                h, aux = checkpoint(self.block_fn, l, h, mesh,
+                h, aux = checkpoint(self.block_fn, l, h, mesh, par,
                                     use_reentrant=False)
             else:
-                h, aux = self.block_fn(l, h, mesh)
+                h, aux = self.block_fn(l, h, mesh, par)
             aux_sum = aux_sum + aux
         return h, aux_sum
 
-    def _head_logits(self, h, dtype=None):
+    def _head_logits(self, h, dtype=None, par=None):
         """Final LN in fp32, then the tied head in ``dtype`` (default the
-        compute dtype)."""
+        compute dtype): this rank's vocabulary columns when ``par`` splits
+        the head."""
         c = self.config
         x32 = h.float()
         m = x32.mean(-1, keepdim=True)
@@ -181,11 +206,19 @@ class ErnieMoeModel(StackedDecoder):
             + self.lnf_b
         dt = self.compute_dtype if dtype is None else dtype
         w = self._cw("wte") if dt == self.compute_dtype else self.wte.to(dt)
-        return hn.to(dt) @ w.T
+        hn = hn.to(dt)
+        if par is not None and par.head_split:
+            hn = par.copy(hn)
+        return hn @ w.T
 
-    def head_loss_fn(self, h, labels, aux_sum=0.0):
-        """Fused CE on compute-dtype logits + ``aux_loss_weight · aux``."""
-        nll = softmax_cross_entropy_mean(self._head_logits(h), labels)
+    def head_loss_fn(self, h, labels, aux_sum=0.0, par=None):
+        """Fused CE on compute-dtype logits (over vocabulary-split logits
+        when ``par`` splits the head) + ``aux_loss_weight · aux``."""
+        logits = self._head_logits(h, par=par)
+        if par is not None and par.head_split:
+            nll = vocab_parallel_cross_entropy_mean(logits, labels, par.mp)
+        else:
+            nll = softmax_cross_entropy_mean(logits, labels)
         return nll + self.config.aux_loss_weight * aux_sum
 
     def forward(self, input_ids, labels=None):
@@ -202,41 +235,123 @@ class ErnieMoeModel(StackedDecoder):
         return self._head_logits(h, dtype=torch.float32)
 
 
+def dims_mapping(config: ErnieMoeConfig):
+    """The reference's layout of ERNIE-MoE's parameters
+    (``paddle_tpu/models/ernie_moe.py:78-100``): vocabulary-parallel
+    ``wte``, column-parallel ``qkv``, row-parallel ``proj``, and the
+    experts over ``config.expert_axis``."""
+    experts = {1: config.expert_axis}
+    return {"wte": {0: "model"}, "blocks_qkv_w": {2: "model"},
+            "blocks_qkv_b": {1: "model"}, "blocks_proj_w": {1: "model"},
+            "blocks_expert_w1": experts, "blocks_expert_b1": experts,
+            "blocks_expert_w2": experts, "blocks_expert_b2": experts}
+
+
+def _check_ernie_mesh(cfg, hcg, zero_stage=0):
+    """What waits for ROADMAP A7b on ERNIE-MoE's steps: sep degrees, an
+    expert axis the batch is not split over, a sharding degree beside a
+    split expert axis, ZeRO with a split expert axis (A7b item 3) or with
+    model ranks.  Returns the hybrid group's mesh."""
+    degrees = _mesh_degrees(hcg)
+    axis_degree = {"data": degrees.get("dp", 1),
+                   "model": degrees.get("mp", 1),
+                   "sharding": degrees.get("sharding", 1),
+                   "sep": degrees.get("sep", 1)}
+    split = axis_degree.get(cfg.expert_axis, 1) > 1
+    if split and cfg.expert_axis != "data":
+        raise NotImplementedError(
+            f"an expert axis the batch is not split over "
+            f"({cfg.expert_axis!r}) waits for ROADMAP A7b")
+    if split and axis_degree["sharding"] > 1:
+        raise NotImplementedError(
+            "a sharding degree beside a split expert axis waits for ROADMAP "
+            "A7b")
+    if zero_stage > 0:
+        if split:
+            raise NotImplementedError(
+                f"zero_stage {zero_stage} with an expert axis waits for "
+                f"ROADMAP A7b item 3 (ZeRO composed with expert "
+                f"parallelism)")
+        _refuse_composed(hcg, f"zero_stage {zero_stage}")
+    return _check_degrees(hcg, runs=("mp",))
+
+
+def _ernie_loss(model, mesh, par, remat):
+    moe_mesh = None if mesh is None or mesh.size <= 1 else mesh
+
+    def loss_of(params, input_ids, labels):
+        # ``params`` are the tensors ``model`` holds for this call (its own
+        # parameters, the state's swapped in, or this rank's blocks)
+        p = None if par is None else par.bind(model)
+        h, aux = model.scan_blocks(model.embed_fn(input_ids, par=p),
+                                   mesh=moe_mesh, remat=remat, par=p)
+        return model.head_loss_fn(h, labels, aux, par=p)
+    return loss_of
+
+
 def make_ernie_moe_train_step(model: ErnieMoeModel, optimizer, hcg=None,
                               remat: bool = True, donate: bool = True,
                               monitor=None):
-    """The ERNIE-MoE train step on one device: ``step(state, lr, input_ids,
-    labels) -> (state, loss)`` with ``state = {"params", "opt",
-    "buffers"}``; with ``donate`` the model's own parameters, updated in
-    place, else a fresh state each step (``distributed.spmd``).  ``hcg`` is
-    None or a one-device hybrid group (parallel degrees, expert parallelism
-    included, raise: ROADMAP A7b).  ``monitor`` (a ``telemetry.
-    TrainMonitor``) wraps the step as ``make_gpt_train_step``'s does."""
+    """The ERNIE-MoE train step: ``step(state, lr, input_ids, labels) ->
+    (state, loss)`` with ``state = {"params", "opt", "buffers"}``; with
+    ``donate`` the model's own parameters (this rank's blocks over a
+    mesh), updated in place, else a fresh state each step
+    (``distributed.spmd``).  ``hcg`` None (one device) or a hybrid group
+    over data (the expert axis) and model degrees: each rank is given the
+    global batch and takes its rows, holds its shards (module docstring),
+    and the loss is the global mean.  ``monitor`` (a ``telemetry.
+    TrainMonitor``) wraps the step as ``make_gpt_train_step``'s does,
+    counting each token once.  A sep or pipe degree raises, and so do
+    the layouts ``_check_ernie_mesh`` names (ROADMAP A7b, A7c)."""
     from ..distributed.spmd import make_gspmd_step_from_loss
     from ..telemetry import instrument_train_step
 
-    degrees = _mesh_degrees(hcg)
-    if any(d > 1 for d in degrees.values()):
-        raise NotImplementedError(
-            f"parallel degrees {degrees} are the distributed slice of the "
-            f"port (ROADMAP A7b); pass hcg=None or a one-device group")
-
-    def loss_of(params, input_ids, labels):
-        h, aux = model.scan_blocks(model.embed_fn(input_ids), remat=remat)
-        return model.head_loss_fn(h, labels, aux)
-
+    mesh = _check_ernie_mesh(model.config, hcg)
+    # a model built on the meta device and moved (``from_numpy``) lost
+    # the marks its constructor set
+    mark_dims_mapping(model, dims_mapping(model.config))
+    params0 = dict(model.named_parameters())
+    par, _ = _mesh_context(model, mesh, params0, dims_mapping(model.config),
+                           mlp=None)
     step, state0 = make_gspmd_step_from_loss(
-        loss_of, dict(model.named_parameters()), optimizer, layer=model,
-        donate=donate)
-    return instrument_train_step(step, monitor, "ernie_moe"), state0
+        _ernie_loss(model, mesh, par, remat), params0, optimizer, mesh,
+        layer=model, donate=donate)
+    return instrument_train_step(step, monitor, "ernie_moe",
+                                 batch_info=_rank_batch_info(mesh)), state0
 
 
 def make_sharded_ernie_moe_train_step(cfg: ErnieMoeConfig, optimizer, hcg,
                                       zero_stage: int = 0, seed: int = 0,
-                                      remat: bool = True, donate: bool = True):
-    """The reference's mesh-direct sharded init: the distributed slice."""
-    raise NotImplementedError("make_sharded_ernie_moe_train_step is the "
-                              "distributed slice of the port (ROADMAP A7b)")
+                                      remat: bool = True, donate: bool = True,
+                                      device=None, monitor=None):
+    """The ERNIE-MoE step with the model built here from ``seed`` on
+    ``device`` (default cuda) and each rank keeping its shards of the
+    state (``zero_stage`` as sharding specs), over the degrees
+    :func:`make_ernie_moe_train_step` takes.  The reference initialises
+    each device's shard directly; here each rank builds the whole model
+    once (the same seed on every rank) and keeps its blocks
+    (``ROADMAP.md`` §C).  A ``zero_stage`` above 0 with a split expert
+    axis or model ranks raises (ROADMAP A7b).  Returns ``(step,
+    state0)``."""
+    from .. import resolve_device
+    from ..distributed.spmd import make_gspmd_sharded_init_step
+    from ..telemetry import instrument_train_step
+
+    mesh = _check_ernie_mesh(cfg, hcg, zero_stage)
+    dev = resolve_device(device)
+    model = ErnieMoeModel(cfg, device=dev,
+                          generator=torch.Generator(dev).manual_seed(seed))
+
+    def build(seed):
+        return dict(model.named_parameters())
+
+    par, _ = _mesh_context(model, mesh, build(seed), dims_mapping(cfg),
+                           mlp=None)
+    step, state0 = make_gspmd_sharded_init_step(
+        _ernie_loss(model, mesh, par, remat), build, optimizer, mesh, model,
+        zero_stage=zero_stage, donate=donate, seed=seed)
+    return instrument_train_step(step, monitor, "ernie_moe_sharded",
+                                 batch_info=_rank_batch_info(mesh)), state0
 
 
 def params_from_numpy(np_state, config: ErnieMoeConfig,

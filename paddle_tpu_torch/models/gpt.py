@@ -508,49 +508,62 @@ DIMS_MAPPING = {"wte": {0: "model"}, "blocks_qkv_w": {2: "model"},
                 "blocks_fc2_w": {1: "model"}, "lm_head": {1: "model"}}
 
 
-def mark_dims_mapping(model):
+def mark_dims_mapping(model, mapping=None):
     """Set the reference's ``_dims_mapping`` on ``model``'s parameters
-    (what ``sharding_rules.build_param_specs`` reads)."""
+    (what ``sharding_rules.build_param_specs`` reads): ``mapping``, GPT's
+    ``DIMS_MAPPING`` by default."""
+    mapping = DIMS_MAPPING if mapping is None else mapping
     for n, p in model.named_parameters():
-        if n in DIMS_MAPPING:
-            p._dims_mapping = dict(DIMS_MAPPING[n])
+        if n in mapping:
+            p._dims_mapping = dict(mapping[n])
     return model
 
 
 class MeshContext:
-    """What one rank of a data × sharding × sep × model mesh computes GPT
-    with (module docstring): its model and sep groups, which parts
-    ``specs`` (the parameters' partition specs) split over the model
-    ranks, and the attention over the sep ranks (the config's
-    ``sequence_parallel``).  The head-aligned QKV weight and bias of a
-    step are set by :meth:`bind`."""
+    """What one rank of a data × sharding × sep × model mesh computes a
+    model of stacked ``blocks_*`` with (module docstring): its model and
+    sep groups, which parts ``specs`` (the parameters' partition specs)
+    split over the model ranks, and the attention over the sep ranks (the
+    config's ``sequence_parallel``, if it has one).  GPT, BERT and
+    ERNIE-MoE share it: ``vocab`` names the embedding table looked up
+    (``wte``, BERT's ``word_emb``), ``head`` the head's weight (default
+    the tied ``wte``, or ``lm_head`` when the config unties it), ``bias``
+    a head bias split with it (BERT's ``mlm_bias``), ``mlp`` the
+    column- and row-parallel MLP weights (None where the FFN is not split:
+    ERNIE's experts).  The head-aligned QKV weight and bias of a step are
+    set by :meth:`bind`."""
 
-    def __init__(self, mesh, specs, config):
+    def __init__(self, mesh, specs, config, vocab="wte", head=None,
+                 bias=None, mlp=("blocks_fc1_w", "blocks_fc2_w")):
         from ..distributed.sharding_rules import _entry_axes
 
         def split(name):
             return any("model" in _entry_axes(e)
                        for e in specs.get(name, ()))
 
+        if head is None:
+            head = ("wte" if getattr(config, "tie_word_embeddings", True)
+                    else "lm_head")
         self.mp = mesh.axis_group("model")
         self.sep = mesh.axis_group("sep")
         self.sep_rank = mesh.coord.get("sep", 0)
-        self.mode = config.sequence_parallel
+        self.mode = getattr(config, "sequence_parallel", None)
         split_mp = self.mp.nranks > 1
-        self.vocab_split = split_mp and split("wte")
-        self.head_split = split_mp and split(
-            "wte" if config.tie_word_embeddings else "lm_head")
+        self.vocab_split = split_mp and split(vocab)
+        self.head_split = split_mp and split(head)
         self.heads_split = split_mp and split("blocks_qkv_w")
-        self.mlp_split = split_mp and split("blocks_fc1_w")
+        self.mlp_split = split_mp and mlp is not None and split(mlp[0])
         nh = config.num_attention_heads
         if self.heads_split and nh % self.mp.nranks:
             raise ValueError(
                 f"num_attention_heads ({nh}) must divide by the model degree "
                 f"({self.mp.nranks}): a rank computes whole heads")
-        if self.heads_split != split("blocks_proj_w") or \
-                self.mlp_split != split("blocks_fc2_w"):
+        if self.heads_split != split("blocks_proj_w") or (
+                mlp is not None and self.mlp_split != split(mlp[1])) or (
+                bias is not None and self.head_split != split(bias)):
             raise ValueError("the column- and row-parallel halves of a "
-                             "block must split alike over the model ranks")
+                             "block, and a head and its bias, must split "
+                             "alike over the model ranks")
         self.qkv_w = self.qkv_b = None
 
     def copy(self, x):
@@ -622,7 +635,7 @@ def _mesh_degrees(hcg):
 
 def _check_degrees(hcg, runs=()):
     """The pipe degree waits for its slice, and so do the model and sep
-    degrees of a model not in ``runs`` (BERT's and ERNIE's tensor
+    degrees of a model not in ``runs`` (BERT's and ERNIE-MoE's sequence
     parallelism: ROADMAP A7b); returns the hybrid group's mesh (None
     without one)."""
     degrees = _mesh_degrees(hcg)
@@ -630,8 +643,8 @@ def _check_degrees(hcg, runs=()):
         if axis not in runs and degrees.get(axis, 1) > 1:
             raise NotImplementedError(
                 f"{axis} degree {degrees[axis]} waits for ROADMAP {item} "
-                f"(BERT's and ERNIE's tensor and sequence parallelism A7b, "
-                f"the pipeline A7c)")
+                f"(BERT's and ERNIE-MoE's sequence parallelism A7b, the "
+                f"pipeline A7c)")
     return None if hcg is None else hcg.mesh
 
 
@@ -666,17 +679,18 @@ def _rank_batch_info(mesh):
     return info
 
 
-def _mesh_context(model, mesh, params0):
+def _mesh_context(model, mesh, params0, mapping=None, **names):
     """The :class:`MeshContext` of ``model`` over ``mesh`` (None off a
-    model or sep mesh) and the sequence dim the step splits (1, or None
-    without sep ranks)."""
+    model or sep mesh; ``names`` its parameter names) after marking
+    ``mapping`` (GPT's by default), and the sequence dim the step splits
+    (1, or None without sep ranks)."""
     if mesh is None or (mesh.shape.get("model", 1) <= 1
                         and mesh.shape.get("sep", 1) <= 1):
         return None, None
     from ..distributed.sharding_rules import build_param_specs
-    mark_dims_mapping(model)
+    mark_dims_mapping(model, mapping)
     par = MeshContext(mesh, build_param_specs(params0, mesh, model),
-                      model.config)
+                      model.config, **names)
     return par, (1 if par.sep.nranks > 1 else None)
 
 

@@ -7,10 +7,11 @@ log-probabilities.  There is no Pallas kernel here: plain PyTorch.
 
 Under tensor parallelism the logits are split over the model group along
 the vocabulary (rank r holds columns [r·V/mp, (r+1)·V/mp));
-:func:`vocab_parallel_cross_entropy_mean` is the same mean over the whole
-vocabulary with the max, the sum of exponentials and the target logit
-all-reduced over the group, and a backward with no collective.  The full
-logits are never gathered.
+:func:`vocab_parallel_cross_entropy_mean` (GPT's and ERNIE-MoE's tied
+head) and :func:`vocab_parallel_cross_entropy_weighted_mean` (BERT's MLM
+head) are the same means over the whole vocabulary with the max, the sum
+of exponentials and the target logit all-reduced over the group, and a
+backward with no collective.  The full logits are never gathered.
 """
 
 from __future__ import annotations
@@ -121,6 +122,24 @@ class _VocabParallelCrossEntropyMean(torch.autograd.Function):
         return d.mul_(g / lse.numel()).to(logits.dtype), None, None
 
 
+class _VocabParallelCrossEntropyWeightedMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, labels, weights, group):
+        lse, picked, idx, valid = vocab_parallel_lse_and_picked(
+            logits, labels, group)
+        w = weights.float()
+        denom = torch.clamp(w.sum(), min=1.0)
+        ctx.save_for_backward(logits, lse, idx, valid, w, denom)
+        return ((lse - picked) * w).sum() / denom
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, idx, valid, w, denom = ctx.saved_tensors
+        d = vocab_parallel_softmax_minus_onehot(logits, lse, idx, valid)
+        scale = (g / denom) * w
+        return d.mul_(scale[..., None]).to(logits.dtype), None, None, None
+
+
 def vocab_parallel_cross_entropy_mean(logits, labels, group):
     """:func:`softmax_cross_entropy_mean` of logits split over ``group``
     along the vocabulary (this rank's (..., V/mp) block): the same fp32
@@ -129,3 +148,15 @@ def vocab_parallel_cross_entropy_mean(logits, labels, group):
     if group.nranks <= 1:
         return softmax_cross_entropy_mean(logits, labels)
     return _VocabParallelCrossEntropyMean.apply(logits, labels, group)
+
+
+def vocab_parallel_cross_entropy_weighted_mean(logits, labels, weights,
+                                               group):
+    """:func:`softmax_cross_entropy_weighted_mean` of logits split over
+    ``group`` along the vocabulary (BERT's MLM head over model ranks): the
+    same fp32 scalar on every rank of the group; the gradient of this
+    rank's block."""
+    if group.nranks <= 1:
+        return softmax_cross_entropy_weighted_mean(logits, labels, weights)
+    return _VocabParallelCrossEntropyWeightedMean.apply(logits, labels,
+                                                        weights, group)

@@ -219,8 +219,16 @@ class TestTrainStep:
             def get_model_parallel_world_size(self):
                 return 2
 
-        with pytest.raises(NotImplementedError, match="A7"):
-            TB.make_bert_train_step(tm, opt, TwoWay())
+        class TwoSep:
+            def get_sep_parallel_world_size(self):
+                return 2
+
+        # model degrees run (tests/test_torch_bert_tp.py); ZeRO over model
+        # ranks and sep degrees wait for ROADMAP A7b
+        with pytest.raises(NotImplementedError, match="A7b"):
+            TB.make_bert_train_step(tm, opt, TwoWay(), zero_stage=1)
+        with pytest.raises(NotImplementedError, match="A7b"):
+            TB.make_bert_train_step(tm, opt, TwoSep())
         # donate=False (ported): a fresh state, the model untouched, the
         # donated step's loss
         _, ta = _pair()

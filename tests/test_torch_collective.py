@@ -384,9 +384,10 @@ class TestTopology:
                                              ("pp_degree", "A7c")])
     def test_model_pipe_sep_degrees_raise(self, degree, item):
         """A pipe degree raises everywhere (A7c).  Model and sep degrees
-        run GPT (tests/test_torch_gpt_tp.py): the hybrid group takes them
-        (here it only asks for a world of two), and what still waits for
-        A7b raises: BERT's step, and GPT's ZeRO and update sharding."""
+        run GPT (tests/test_torch_gpt_tp.py), and model degrees BERT
+        (tests/test_torch_bert_tp.py): the hybrid group takes them (here it
+        only asks for a world of two), and what still waits for A7b
+        raises: GPT's and BERT's ZeRO, GPT's update sharding."""
         from paddle_tpu_torch.distributed import HybridCommunicateGroup
         from paddle_tpu_torch.models import bert as TB
         from paddle_tpu_torch.models.gpt import (GPTConfig, GPTModel,
@@ -414,7 +415,7 @@ class TestTopology:
             num_attention_heads=2, max_position_embeddings=16,
             compute_dtype="float32"), device="cpu")
         with pytest.raises(NotImplementedError, match=item):
-            TB.make_bert_train_step(bert, TO.SGD(0.1), hcg)
+            TB.make_bert_train_step(bert, TO.SGD(0.1), hcg, zero_stage=1)
 
     def test_hybrid_group_needs_the_world_of_its_degrees(self):
         from paddle_tpu_torch.distributed import HybridCommunicateGroup

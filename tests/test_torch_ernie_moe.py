@@ -172,8 +172,10 @@ class TestModel:
             _close(p, jstate["params"][n], msg=n)
 
     def test_donate_false_and_unported(self):
-        """donate=False follows the donated trajectory; expert
-        parallelism and the sharded step raise."""
+        """donate=False follows the donated trajectory; what still waits
+        for ROADMAP A7b (a sep degree, ZeRO with a split expert axis)
+        raises, and the sharded step builds on one device (its mesh arms:
+        tests/test_torch_ernie_moe_ep.py)."""
         params = _models()[1]
         ta, tb = _fresh(params), _fresh(params)
         sa, sta = TE.make_ernie_moe_train_step(ta, TO.AdamW(1e-3))
@@ -190,15 +192,23 @@ class TestModel:
             _close(stb["params"][n], p.detach().numpy(), msg=n)
             assert not torch.equal(dict(tb.named_parameters())[n], p)
 
+        class TwoSep:
+            def get_sep_parallel_world_size(self):
+                return 2
+
         class TwoWay:
             def get_data_parallel_world_size(self):
                 return 2
 
-        with pytest.raises(NotImplementedError, match="A7"):
-            TE.make_ernie_moe_train_step(ta, TO.AdamW(1e-3), TwoWay())
-        with pytest.raises(NotImplementedError, match="A7"):
+        with pytest.raises(NotImplementedError, match="A7b"):
+            TE.make_ernie_moe_train_step(ta, TO.AdamW(1e-3), TwoSep())
+        with pytest.raises(NotImplementedError, match="A7b item 3"):
             TE.make_sharded_ernie_moe_train_step(
-                TE.ErnieMoeConfig(**TINY), TO.AdamW(1e-3), None)
+                TE.ErnieMoeConfig(**TINY), TO.AdamW(1e-3), TwoWay(),
+                zero_stage=1, device="cpu")
+        _, st = TE.make_sharded_ernie_moe_train_step(
+            TE.ErnieMoeConfig(**TINY), TO.AdamW(1e-3), None, device="cpu")
+        assert set(st) == {"params", "opt", "buffers"}
         with pytest.raises(ValueError, match="remat"):
             ta.scan_blocks(torch.zeros(1, 8, 32), remat="dots")
 

@@ -204,13 +204,20 @@ def test_gather_on_tied_probabilities():
 
 
 def test_expert_mesh_axis_raises():
-    class Mesh:
-        shape = {"data": 2}
+    """Expert parallelism over the data axis runs
+    (tests/test_torch_moe_ep.py); what waits for ROADMAP A7b raises: an
+    expert axis the tokens are not split over, a sharding degree beside
+    a split expert axis, a sep degree."""
+    def mesh(**shape):
+        return type("Mesh", (), {"shape": shape, "size": 4})()
 
     _, t = _both(_ffn_inputs(T_=8))
     for fn in (T.moe_ffn, T.moe_ffn_indices):
-        with pytest.raises(NotImplementedError, match="A7"):
-            fn(*t, mesh=Mesh())
+        for m, axis in ((mesh(model=2), "model"),
+                        (mesh(data=2, sharding=2), "data"),
+                        (mesh(data=2, sep=2), "data")):
+            with pytest.raises(NotImplementedError, match="A7b"):
+                fn(*t, mesh=m, expert_axis=axis)
     out, _ = T.moe_ffn_indices(*t, mesh=type("One", (), {"shape":
                                                          {"data": 1}})())
     assert out.shape == (8, 16)
