@@ -388,6 +388,18 @@ Phases (any failure exits non-zero before the result lines):
    step's time split into gloo and the rest, the bytes into gloo by
    collective and the host-staged copies; B2-B4 at the two new shapes
    against their plain versions.
+27. the pipe axis at gpt2s width (B 8, L 1024, 4 micro-batches of 2 rows,
+   AdamW 3e-4, remat off), on gloo ranks sharing the card: pp 2 1F1B, pp
+   2 x V 2 interleaved and pp 2 x mp 2 (four ranks) at 12 layers in bf16,
+   and pp 2 in fp32 at 4 layers; 3 steps each from the one-rank step's
+   weights: the bf16 arms' losses held as phase 26's and the weights'
+   move as phase 25's, the fp32 arm's losses and each rank's blocks of
+   the parameters (by the norm over them all) within 1e-5 relative of the
+   one-rank step's; B2-B4
+   launches a rank (its layers times the micro-batches), each step's time
+   split into gloo (the p2p exchanges apart) and the rest, the bytes a
+   rank holds against one rank's; B2-B4 at a micro-batch's shapes
+   against their plain versions.
 
 Then each kernel is timed at its main path's shapes beside its plain
 version, one PyTorch call computing the same function (``library_ms``,
@@ -415,8 +427,8 @@ faulted fleet's bucketed replica) and phase 21's (the three flash
 kernels in (a)'s 36 steps and, on both ranks, in (c)'s GPT and BERT
 arms; the fused LN kernels in (c)'s BERT arm) and phase 22's (the three
 flash kernels in every step of 22a and of 22b's two ranks) and phases
-25's and 26's (the three flash kernels on every rank of their arms, the
-fused LN kernels on 26's BERT ranks).  The last two lines are the
+25's, 26's and 27's (the three flash kernels on every rank of their
+arms, the fused LN kernels on 26's BERT ranks).  The last two lines are the
 kernels JSON and the device JSON.
 
 Without CUDA, or run without the rest of the repository, it exits
@@ -6768,6 +6780,314 @@ def time_fused():
     return rows
 
 
+# ------------------------------------------------------------ phase 27 --
+
+PP_M, PP_STEPS = 4, 3
+#: phase 27's arms: (name, world, degrees, fp32); the fp32 arm is gpt2s
+#: width cut to PP_FP32_LAYERS layers
+PP_ARMS = (("pp 2", 2, {"pp_degree": 2}, False),
+           ("pp 2 x V 2", 2, {"pp_degree": 2, "pp_configs": {
+               "virtual_pipeline_degree": 2}}, False),
+           ("pp 2 fp32", 2, {"pp_degree": 2}, True),
+           ("pp 2 x mp 2", 4, {"pp_degree": 2, "mp_degree": 2}, False))
+PP_FP32_LAYERS = 4
+PP_FP32_RTOL = 1e-5
+
+
+def pp_model(fp32):
+    """gpt2s from seed 0 on the card: bf16 at 12 layers, or fp32 at
+    ``PP_FP32_LAYERS``."""
+    from paddle_tpu_torch.models.gpt import GPTModel, gpt_preset
+
+    over = dict(DP_WIDTH, num_layers=PP_FP32_LAYERS,
+                compute_dtype="float32") if fp32 else DP_WIDTH
+    return GPTModel(gpt_preset("gpt2-small", **over), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0))
+
+
+def pp_cut(step, hc):
+    """``cut(name, full)``: this rank's block of a whole tensor under the
+    pipeline step's layout (stacked tensors chunk-interleaved first)."""
+    from paddle_tpu_torch.distributed.pipeline_engine import \
+        interleave_layers
+    from paddle_tpu_torch.distributed.sharding_rules import local_shard
+
+    mesh, specs = step.layout.mesh, step.layout.specs["params"]
+    V = hc.get("pp_configs", {}).get("virtual_pipeline_degree", 1)
+
+    def cut(name, full):
+        full = full.cuda()
+        if name.startswith("blocks_") and V > 1:
+            full = interleave_layers(full, mesh.shape["pipe"], V)
+        return local_shard(full, specs[name], mesh)
+    return cut
+
+
+def rank27(rank, world, tmp):
+    """One rank of phase 27's world of ``world``: each arm's 3 steps (the
+    first a warm-up), the time in gloo (the pipeline's p2p exchanges apart)
+    and the rest, the flash launches, the bytes the state holds, and the
+    weights against the one-rank step's."""
+    import datetime
+    import pickle
+
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import spmd
+    from paddle_tpu_torch.distributed.zero import per_device_state_bytes
+    from paddle_tpu_torch.models.gpt import make_gpt_train_step
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_parallel_env(backend="gloo", init_method=f"file://{tmp}/rdv",
+                           rank=rank, world_size=world,
+                           timeout=datetime.timedelta(seconds=600))
+    check("jax" not in sys.modules, "phase27: a rank imported jax")
+    gloo = [0.0, 0]
+    run = C._run
+
+    def timed(name, group, inputs, outputs, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(name, group, inputs, outputs, fn)
+        torch.cuda.synchronize()
+        gloo[0] += time.perf_counter() - t0
+        gloo[1] += 1
+
+    C._run = timed
+    x, y = tp_batch()
+    out = {}
+    for name, w, hc, fp32 in PP_ARMS:
+        if w != world:
+            continue
+        kind = "fp32" if fp32 else "bf16"
+        model = pp_model(fp32)
+        hcg = fleet_hcg(**hc)
+        step, state = make_gpt_train_step(model, AdamW(TP_LR), hcg,
+                                          n_microbatches=PP_M, remat=False)
+        zero_counts()
+        state, loss = step(state, 0, TP_LR, x, y)
+        losses = [loss.item()]
+        warm = flash_counts()[:3]
+        zero_counts()
+        gloo[:] = [0.0, 0]
+        staged0 = dict(C.HOST_STAGING)
+        p2p0 = dict(spmd.PIPE_P2P)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(1, PP_STEPS):
+            state, loss = step(state, i, TP_LR, x, y)
+            losses.append(loss.item())
+        torch.cuda.synchronize()
+        n = PP_STEPS - 1
+        wall = time.perf_counter() - t0
+        p0 = torch.load(f"{tmp}/p0_{kind}.pt")
+        solo = torch.load(f"{tmp}/solo_{kind}.pt")
+        cut = pp_cut(step, hc)
+        got = {k: v.detach() for k, v in state["params"].items()}
+        move = delta_errors(got, p0, solo, cut)
+        # this rank's blocks of every parameter against the one-rank
+        # step's: over them all, and the largest tensor by tensor
+        d2 = w2 = worst = 0.0
+        for k, v in got.items():
+            want = cut(k, solo[k])
+            e = float((v.float() - want).square().sum())
+            d2, w2 = d2 + e, w2 + float(want.square().sum())
+            worst = max(worst, (e / float(want.square().sum())) ** 0.5)
+        rel = (d2 / w2) ** 0.5
+        out[name] = dict(
+            losses=losses, ms=1e3 * wall / n, gloo_ms=1e3 * gloo[0] / n,
+            calls=gloo[1] / n,
+            p2p_ms=1e3 * (spmd.PIPE_P2P["seconds"] - p2p0["seconds"]) / n,
+            p2p_msgs=(spmd.PIPE_P2P["messages"] - p2p0["messages"]) / n,
+            p2p_bytes=(spmd.PIPE_P2P["bytes"] - p2p0["bytes"]) / n,
+            launches=flash_counts()[:3], warm=warm, move=move, rel=rel,
+            worst=worst,
+            coord=dict(hcg.mesh.coord), layers=model.config.num_layers,
+            param_bytes=sum(v.numel() * v.element_size()
+                            for v in state["params"].values()),
+            slot_bytes=per_device_state_bytes(state),
+            staged={k: C.HOST_STAGING[k] - staged0[k] for k in staged0})
+        del model, step, state, got, loss, p0, solo
+        gc.collect()
+        torch.cuda.empty_cache()
+    C._run = run
+    with open(f"{tmp}/rank{world}_{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+def solo27(fp32, tmp):
+    """The one-rank step on the arms' weights and batch: its losses and
+    ms/step, the parameters' bytes and slots; the initial and final
+    weights saved for the ranks."""
+    from paddle_tpu_torch.distributed.zero import per_device_state_bytes
+    from paddle_tpu_torch.models.gpt import make_gpt_train_step
+    from paddle_tpu_torch.optimizer import AdamW
+
+    kind = "fp32" if fp32 else "bf16"
+    model = pp_model(fp32)
+    torch.save({n: p.detach().cpu() for n, p in model.named_parameters()},
+               f"{tmp}/p0_{kind}.pt")
+    step, state = make_gpt_train_step(model, AdamW(TP_LR), remat=False)
+    x, y = tp_batch()
+    losses = []
+    for i in range(PP_STEPS):
+        state, loss = step(state, i, TP_LR, x, y)
+        losses.append(loss.item())
+        if i == 0:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t1) / (PP_STEPS - 1)
+    torch.save({n: p.detach().cpu() for n, p in model.named_parameters()},
+               f"{tmp}/solo_{kind}.pt")
+    out = dict(losses=losses, ms=ms, layers=model.config.num_layers,
+               params=sum(p.numel() * p.element_size()
+                          for p in state["params"].values()),
+               slots=per_device_state_bytes(state))
+    del model, step, state, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase27_flash(card):
+    """B2-B4 at a micro-batch's shapes (B 2 of 8 over M 4, L 1024, hd 64,
+    causal): 12 heads in bf16 and fp32, an mp rank's 6 in bf16, against
+    their plain versions."""
+    from paddle_tpu_torch.ops import attention as A
+
+    mb, D = TP_B // PP_M, 64
+    for dt, H in ((torch.bfloat16, 12), (torch.bfloat16, 6),
+                  (torch.float32, 12)):
+        q, k, v, do, km = flash_inputs(mb, TP_L, H, D, dt, False, seed=27)
+        scale = 1.0 / D ** 0.5
+        qk = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = A._FlashAttention.apply(*qk, km, FLASH_SEED, True, scale, 0.0)
+        grads = torch.autograd.grad(out, qk, do)
+        qp = [t.clone().requires_grad_() for t in (q, k, v)]
+        out_p, _ = A.flash_fwd_ref(*qp, km, FLASH_SEED, True, scale, 0.0)
+        grads_p = torch.autograd.grad(out_p, qp, do)
+        torch.cuda.synchronize()
+        err = (out.float() - out_p.float()).abs().max().item()
+        gerr = [rel_err(a, b) for a, b in zip(grads, grads_p)]
+        check(err <= TOL[dt] and max(gerr) <= GRAD_TOL[dt],
+              f"phase27 flash at B {mb}, L {TP_L}, {H} heads, {dt}: O err "
+              f"{err}, grads {gerr}")
+        say(f"phase27 flash kernels at a micro-batch's shape (B {mb}, L "
+            f"{TP_L}, {H} heads, hd {D}, {str(dt)[6:]}, causal) on {card}: O "
+            f"max abs err {err:.3e} (tol {TOL[dt]}), dq/dk/dv err / "
+            f"max|grad| " + "/".join(f"{e:.3e}" for e in gerr)
+            + f" (tol {GRAD_TOL[dt]})")
+
+
+def phase27(card):
+    """The pipe axis at gpt2s width (B 8, L 1024, M 4 micro-batches of 2
+    rows, AdamW 3e-4, remat off), on gloo ranks sharing the card: (a) pp
+    2 1F1B, (b) pp 2 x V 2 interleaved, (c) pp 2 x mp 2 on four ranks, at
+    12 layers in bf16; (d) pp 2 in fp32 at ``PP_FP32_LAYERS`` layers.
+    Each arm takes 3 steps from the one-rank step's weights: (a)-(c) hold
+    their losses as phase 26's (``held_losses``) and the weights' move as
+    phase 25's, (d) its losses and its blocks of every parameter within
+    ``PP_FP32_RTOL`` of the one-rank step's.  Returns the ranks' flash
+    launches (fwd, dq, dkv)."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    phase27_flash(card)
+    tmp = tempfile.mkdtemp(prefix="phase27_")
+    solo = {False: solo27(False, tmp), True: solo27(True, tmp)}
+    say("phase27: the pipe ranks share this one card over gloo (NCCL refuses "
+        "two ranks on one device); every activation and gradient hop goes "
+        "through the host")
+    t_ranks = time.perf_counter()
+    for world in (2, 4):
+        mp.start_processes(rank27, args=(world, tmp), nprocs=world,
+                           join=True, start_method="spawn")
+    t_ranks = time.perf_counter() - t_ranks
+    ranks = {w: [] for w in (2, 4)}
+    for w in (2, 4):
+        for r in range(w):
+            with open(f"{tmp}/rank{w}_{r}.pkl", "rb") as f:
+                ranks[w].append(pickle.load(f))
+    launches = [0, 0, 0]
+    for name, world, hc, fp32 in PP_ARMS:
+        one = solo[fp32]
+        S = hc["pp_degree"]
+        mp_ = hc.get("mp_degree", 1)
+        nl = one["layers"]
+        # remat off: a rank's layers once a micro-batch, forward and back
+        want = [nl // S * PP_M] * 3
+        for r, rk in enumerate(ranks[world]):
+            a = rk[name]
+            if fp32:
+                a["diffs"] = [abs(g - w) for g, w in
+                              zip(a["losses"], one["losses"])]
+                a["bounds"] = [PP_FP32_RTOL * abs(w) for w in one["losses"]]
+            else:
+                a["diffs"], a["bounds"] = held_losses(a["losses"],
+                                                      one["losses"])
+            check(np.isfinite(a["losses"]).all() and all(
+                d <= b for d, b in zip(a["diffs"], a["bounds"])),
+                  f"phase27 {name} rank {r}: losses {a['losses']} vs one "
+                  f"rank {one['losses']}: differences {a['diffs']}, bounds "
+                  f"{a['bounds']}")
+            check(a["rel"] <= PP_FP32_RTOL if fp32
+                  else a["move"][0] <= DELTA_TOL,
+                  f"phase27 {name} rank {r}: parameters vs one rank's: "
+                  f"relative {a['rel']:.3e}, move {a['move']}")
+            check(a["warm"] == want and
+                  a["launches"] == [n * (PP_STEPS - 1) for n in want],
+                  f"phase27 {name} rank {r}: flash launches "
+                  f"{a['launches']} (warm-up {a['warm']}), want {want} a "
+                  f"step")
+            launches = [s + u + w for s, u, w in
+                        zip(launches, a["launches"], a["warm"])]
+        a = ranks[world][0][name]
+        share = a["param_bytes"] / one["params"]
+        say(f"phase27 {name} (gpt2s width, {nl} layers, "
+            f"{'fp32' if fp32 else 'bf16'}, B {TP_B}, L {TP_L}, M {PP_M}, "
+            f"{world} gloo ranks) on {card}: losses "
+            f"{[round(v, 6) for v in a['losses']]} vs one rank "
+            f"{[round(v, 6) for v in one['losses']]} (differences a step, "
+            f"largest over the ranks, "
+            + "/".join(f"{max(rk[name]['diffs'][i] for rk in ranks[world]):.3e}"
+                       for i in range(PP_STEPS))
+            + ", bounds " + "/".join(f"{b:.3e}" for b in a["bounds"])
+            + "); a rank's parameters vs one rank's, relative over them "
+            "all (largest tensor by tensor) "
+            + "/".join(f"{rk[name]['rel']:.3e} ({rk[name]['worst']:.3e})"
+                       for rk in ranks[world])
+            + ", move " + "/".join(f"{rk[name]['move'][0]:.3e}"
+                                   for rk in ranks[world])
+            + f"; ms/step (rank: total = gloo, of it p2p, + the rest) "
+            + ", ".join(f"{rk[name]['coord']}: {rk[name]['ms']:.3f} = "
+                        f"{rk[name]['gloo_ms']:.3f} (p2p "
+                        f"{rk[name]['p2p_ms']:.3f}, "
+                        f"{rk[name]['p2p_msgs']:.0f} sends of "
+                        f"{rk[name]['p2p_bytes'] / 2**20:.1f} MiB) + "
+                        f"{rk[name]['ms'] - rk[name]['gloo_ms']:.3f}"
+                        for rk in ranks[world])
+            + f"; {a['calls']:.0f} gloo calls a step; one rank "
+            f"{one['ms']:.3f} ms/step; host-staged copies a step "
+            f"{a['staged']['copies'] / (PP_STEPS - 1):.0f} "
+            f"({a['staged']['bytes'] / (PP_STEPS - 1) / 2**20:.1f} MiB); "
+            f"flash fwd/dq/dkv a rank a step {want}; bytes rank 0 holds: "
+            f"parameters {a['param_bytes']} ({share:.3f}x one rank's "
+            f"{one['params']}), AdamW slots {a['slot_bytes']} "
+            f"({a['slot_bytes'] / one['slots']:.3f}x one rank's "
+            f"{one['slots']}); rank shares "
+            + "/".join(f"{rk[name]['param_bytes'] / one['params']:.3f}"
+                       for rk in ranks[world]))
+    say(f"phase27 took {time.perf_counter() - t0:.1f} s on {card} (the ranks "
+        f"{t_ranks:.1f} s); flash fwd/dq/dkv on the ranks {launches}")
+    return launches
+
+
 # ---------------------------------------------------------------- main --
 
 def kernel_row(name, source, replaces, launches, r):
@@ -6963,6 +7283,10 @@ def main():
     torch.cuda.empty_cache()
     ep_launches = phase26(card)
     lap("phase26")
+    gc.collect()
+    torch.cuda.empty_cache()
+    pp_launches = phase27(card)
+    lap("phase27")
 
     ms, plain_ms, library_ms, bound_ms, bound_by, _ = t = time_pack(main_pack)
     say_pack_time("bf16 pools at the phase-3 shapes", t, card)
@@ -7022,7 +7346,8 @@ def main():
         f"fwd/dq/dkv {ckpt_launches}; phase 25's tensor and sequence "
         f"parallelism: flash fwd/dq/dkv {tp_launches}; phase 26's expert "
         f"and model axes: flash fwd/dq/dkv {ep_launches[:3]}, fused LN "
-        f"fwd/bwd {ep_launches[3:]}")
+        f"fwd/bwd {ep_launches[3:]}; phase 27's pipeline: flash "
+        f"fwd/dq/dkv {pp_launches}")
     say(card)                        # the nvidia-smi name,power.limit line
     pack = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
@@ -7031,10 +7356,11 @@ def main():
                        launches + gen_launches[0] + tel_launches[0]
                        + moe_launches[0] + fleet_launches[0], pack)]
     flash_launches = tuple(
-        a + b + c + d + e + f + g for a, b, c, d, e, f, g in zip(
+        a + b + c + d + e + f + g + h for a, b, c, d, e, f, g, h in zip(
             (flash_launches[0] + gen_launches[2] + fleet_launches[1],
              *flash_launches[1:]), tel_launches[2], moe_launches[1:4],
-            dp_launches[:3], ckpt_launches, tp_launches, ep_launches[:3]))
+            dp_launches[:3], ckpt_launches, tp_launches, ep_launches[:3],
+            pp_launches))
     ln_launches = tuple(a + b + c for a, b, c in zip(
         ln_launches, dp_launches[3:], ep_launches[3:]))
     rows += [kernel_row(name, FLASH_SOURCE, FLASH_REPLACES[name], n, r)

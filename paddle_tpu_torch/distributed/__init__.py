@@ -7,13 +7,15 @@ and expert parallelism), the hybrid group and ``fleet`` (the
 tensor-parallel layers in ``fleet.meta_parallel``), the expert exchange
 (``utils``: ``global_scatter``/``global_gather`` and their ragged
 forms), the gradient communication policies, ZeRO stages 1-3 with
-offload, weight-update sharding and the data × sharding × sep × model
-train steps (expert weights held over the data axis).  Crash-consistent
-training rides ``checkpoint`` (sharded saves, resumes on another
-layout), ``store`` (the TCP store), ``fleet.elastic`` (membership) and
-``launch`` (``python -m paddle_tpu_torch.distributed.launch``).
-``localsgd``, ``dgc``, ``auto_parallel`` and the pipeline engine wait
-for their slices (ROADMAP A7b, A7c).
+offload, weight-update sharding, the data × sharding × sep × model
+train steps (expert weights held over the data axis) and the pipeline
+(``spmd``'s 1F1B and interleaved schedules over the pipe axis,
+``pipeline_engine``, ``fleet.meta_parallel.PipelineLayer``).
+Crash-consistent training rides ``checkpoint`` (sharded saves, resumes
+on another layout), ``store`` (the TCP store), ``fleet.elastic``
+(membership) and ``launch`` (``python -m
+paddle_tpu_torch.distributed.launch``).  ``localsgd``, ``dgc`` and
+``auto_parallel`` wait for their slices (ROADMAP A7b).
 """
 
 from . import checkpoint, env, fleet, utils  # noqa: F401

@@ -25,7 +25,9 @@ rank of a group, receive from the previous one).  The expert axis adds
 backward), :func:`sum_over_group` (an all-reduce whose gradient is
 all-reduced too: every rank's loss reads the sum) and
 :func:`all_to_all_uneven` (an all-to-all of rows with per-rank counts,
-``distributed/utils.py``'s ragged exchange).
+``distributed/utils.py``'s ragged exchange).  The pipeline's schedules
+move activations and gradients with :func:`p2p_exchange` (every send and
+receive of one boundary posted at once).
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ _groups = {}
 #: operands are copied through pinned host buffers (never under NCCL)
 _GLOO_HOST_STAGED = frozenset({
     "all_gather", "reduce_scatter", "all_to_all", "all_to_all_uneven",
-    "scatter", "send", "recv", "ring_exchange"})
+    "scatter", "send", "recv", "ring_exchange", "p2p_exchange"})
 
 #: host staging done under gloo: copies (each direction counts) and bytes
 HOST_STAGING = {"copies": 0, "bytes": 0}
@@ -676,6 +678,38 @@ def ring_exchange(tensors, group: Group):
             r.wait()
     _run("ring_exchange", group, ins, outs, fn)
     return outs
+
+
+def p2p_exchange(sends, recvs, group: Group):
+    """Post every send of ``sends`` (``[(tensor, dst)]``) and every
+    receive of ``recvs`` (``[(buffer, src)]``, filled in place; ``dst``
+    and ``src`` are global ranks of ``group``) at once, and wait for all:
+    one NCCL group call (``batch_isend_irecv``), or gloo's own sends and
+    receives.  The pipeline schedules exchange this way at each of their
+    boundaries, every peer posting its side of a pair in the same call,
+    so two neighbours that both send never wait on each other."""
+    import torch.distributed as dist
+    if _solo(group) or not (sends or recvs):
+        return
+    ins = [t.contiguous() for t, _ in sends]
+    outs = [t for t, _ in recvs]
+    dsts = [d for _, d in sends]
+    srcs = [s for _, s in recvs]
+
+    def fn(i, o):
+        if group.backend == "nccl":
+            reqs = dist.batch_isend_irecv(
+                [dist.P2POp(dist.isend, t, d, group=group.pg)
+                 for t, d in zip(i, dsts)]
+                + [dist.P2POp(dist.irecv, t, s, group=group.pg)
+                   for t, s in zip(o, srcs)])
+        else:
+            reqs = [dist.isend(t, d, group=group.pg) for t, d in zip(i, dsts)]
+            reqs += [dist.irecv(t, s, group=group.pg)
+                     for t, s in zip(o, srcs)]
+        for r in reqs:
+            r.wait()
+    _run("p2p_exchange", group, ins, outs, fn)
 
 
 def split(x, size, operation, axis=0, num_partitions=1, gather_out=True,

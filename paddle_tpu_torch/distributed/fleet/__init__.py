@@ -206,7 +206,8 @@ class Fleet:
     def distributed_model(self, model):
         """Reference fleet_base.py:882 — wrap by parallel mode."""
         mode = self._hcg.get_parallel_mode()
-        if mode == "PipelineParallel":
+        from .meta_parallel.parallel_layers.pp_layers import PipelineLayer
+        if isinstance(model, PipelineLayer) or mode == "PipelineParallel":
             return PipelineParallel(model, self._hcg, self._strategy)
         if mode == "TensorParallel":
             return TensorParallel(model, self._hcg, self._strategy)

@@ -1,7 +1,7 @@
 """Hybrid-parallel model wrappers (counterpart of
 ``paddle_tpu/distributed/fleet/meta_parallel``; reference:
 fleet/meta_parallel/{data_parallel → dygraph/parallel.py:397,
-tensor_parallel.py:25, sharding_parallel.py:23}).
+tensor_parallel.py:25, pipeline_parallel.py:30, sharding_parallel.py:23}).
 
 The wrappers forward to the wrapped ``nn.Module``; the distribution itself
 is the train-step builders' (``distributed.spmd``, ``zero``,
@@ -9,7 +9,8 @@ is the train-step builders' (``distributed.spmd``, ``zero``,
 (``parallel_layers.mp_layers``).  ``DataParallel.apply_collective_grads``
 averages the gradients over the data-parallel group for an eager loop;
 ``TensorParallel`` broadcasts the parameters the model ranks replicate.
-``PipelineParallel`` waits for ROADMAP A7c.
+``PipelineParallel`` trains a ``PipelineLayer`` through
+``distributed.pipeline_engine`` (1F1B over the pipe ranks).
 """
 
 from __future__ import annotations
@@ -18,9 +19,10 @@ from torch import nn
 
 from ...topology import get_hybrid_communicate_group
 from .parallel_layers import (ColumnParallelLinear,  # noqa: F401
-                              ParallelCrossEntropy, RNGStatesTracker,
-                              RowParallelLinear, VocabParallelEmbedding,
-                              get_rng_state_tracker,
+                              LayerDesc, ParallelCrossEntropy, PipelineLayer,
+                              RNGStatesTracker, RowParallelLinear,
+                              SegmentLayers, SharedLayerDesc,
+                              VocabParallelEmbedding, get_rng_state_tracker,
                               model_parallel_random_seed)
 
 
@@ -89,8 +91,63 @@ class TensorParallel(MetaParallelBase):
 
 
 class PipelineParallel(MetaParallelBase):
-    """Reference: pipeline_parallel.py:30 — waits for ROADMAP A7c."""
+    """Reference: pipeline_parallel.py:30 (train_batch:152,
+    forward_backward_pipeline:80 1F1B).  ``train_batch`` keeps the
+    reference's signature: every rank feeds the global batch, split into
+    ``accumulate_steps`` micro-batches (``strategy.pipeline_configs``) of
+    this rank's rows; the step is built at the first call
+    (``pipeline_engine.make_pipeline_train_step``) and updates the layer's
+    own parameters.  ``micro_batch_size`` is kept and not read, as in the
+    reference."""
 
     def __init__(self, layers, hcg=None, strategy=None):
-        raise NotImplementedError("PipelineParallel: the pipeline engine is "
-                                  "ROADMAP A7c")
+        super().__init__(layers, hcg, strategy)
+        if not isinstance(layers, PipelineLayer):
+            raise TypeError("PipelineParallel expects a PipelineLayer")
+        cfg = (strategy.pipeline_configs if strategy is not None else
+               {"accumulate_steps": 1, "micro_batch_size": 1})
+        self.accumulate_steps = cfg.get("accumulate_steps", 1)
+        self.micro_batch_size = cfg.get("micro_batch_size", 1)
+        self._step_fn = None
+        self._state = None
+
+    def train_batch(self, data, optimizer, lr_scheduler=None, scaler=None):
+        """One step on ``data = (inputs, labels)``: the global mean loss
+        (on every rank)."""
+        inputs, labels = data
+        if self._step_fn is None:
+            from ...pipeline_engine import make_pipeline_train_step
+            self._step_fn, self._state = make_pipeline_train_step(
+                self._layers, self._layers._loss_fn,
+                getattr(optimizer, "_inner_opt", optimizer), self._hcg,
+                self.accumulate_steps)
+        self._state, loss = self._step_fn(self._state, None,
+                                          optimizer.get_lr(), inputs, labels)
+        if lr_scheduler is not None:
+            lr_scheduler.step()
+        return loss
+
+    def eval_batch(self, data, compute_loss=True):
+        """The forward over the pipe ranks: the loss (or, without
+        ``compute_loss``, the last stage's output) on every rank."""
+        import torch
+        from ...pipeline_engine import _one
+        from ...spmd import broadcast_from, run_pipeline
+        inputs, labels = (_one(t) for t in data)
+        layers = self._layers
+        if layers.get_num_stages() <= 1:
+            with torch.no_grad():
+                out = layers.forward_stage(inputs, 0)
+            if compute_loss and layers._loss_fn is not None:
+                return layers._loss_fn(out, labels)
+            return out
+        pipe = self._hcg.get_pipe_parallel_group()
+        stage = self._hcg.get_stage_id()
+        outputs, _, _, _ = run_pipeline(
+            lambda v, x, m: layers.forward_stage(x, stage), [], [[]],
+            [inputs], pipe.nranks, 1, pipe)
+        out = outputs[0]
+        if out is not None and compute_loss and layers._loss_fn is not None:
+            with torch.no_grad():
+                out = layers._loss_fn(out, labels)
+        return broadcast_from(out, pipe.ranks[-1], pipe, inputs.device)

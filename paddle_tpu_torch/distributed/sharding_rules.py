@@ -28,8 +28,8 @@ a spec is the block the reference's ``addressable_shards[r]`` holds
 The model axis enters through ``_dims_mapping`` (a dim the degree does not
 divide stays replicated, as in the reference); :func:`without_axis` is the
 spec of a rank's model-axis block (the block the tensor-parallel steps hold
-and compute on).  ``override_leading_axis`` waits for the pipeline slice
-(ROADMAP A7c).
+and compute on).  :func:`override_leading_axis` is the pipeline's
+stacked-parameter layout (the leading layer dim over "pipe").
 """
 
 from __future__ import annotations
@@ -45,7 +45,8 @@ __all__ = [
     "CATALOG_VERSION", "PartitionSpec", "ShardingRules",
     "activation_batch_spec", "batch_spec", "build_param_specs",
     "build_state_shardings", "gather_full", "local_shard", "make_spec",
-    "match_partition_rules", "register_rules", "replica_stacked_spec",
+    "match_partition_rules", "override_leading_axis", "register_rules",
+    "replica_stacked_spec",
     "replicated_spec", "replication_fallback", "resolve_flat_shard_spec",
     "sep_activation_spec", "sharding_rules_digest", "spec_tree_digest",
     "unregister_rules", "without_axis",
@@ -181,6 +182,18 @@ def sep_activation_spec(ndim: int = 4, axis: str = "sep",
     None)`` at the default rank)."""
     entries: list = [None] * ndim
     entries[seq_dim] = axis
+    return PartitionSpec(*entries)
+
+
+def override_leading_axis(spec: PartitionSpec, ndim: int,
+                          axis: str) -> PartitionSpec:
+    """``spec`` widened to ``ndim`` entries with dim 0 forced onto
+    ``axis``: the pipeline engine's stacked-parameter layout (the leading
+    layer dim over "pipe")."""
+    entries = [None] * ndim
+    for i, a in enumerate(spec):
+        entries[i] = a
+    entries[0] = axis
     return PartitionSpec(*entries)
 
 

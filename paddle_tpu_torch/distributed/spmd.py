@@ -37,8 +37,15 @@ A mesh of one rank (or none) takes the one-device step: the loss and its
 gradients, then ``optimizer.update``, with nothing to communicate.  ZeRO
 and its stage-2/3 layouts compose with the data and sharding axes only
 (over model or sep ranks, or with expert weights held over the data
-axis, they raise: ROADMAP A7b).  ``spmd_pipeline*``
-and ``ensure_varying`` wait for ROADMAP A7c.
+axis, they raise: ROADMAP A7b).  A pipe axis no spec splits is held
+replicated (each pipe rank computes the same step, as the reference's
+GSPMD does).
+
+The pipe axis runs through the schedules at the end of this module
+(:func:`spmd_pipeline`, :func:`spmd_pipeline_interleaved`, their shared
+:func:`run_pipeline`) and ``pipeline_engine``'s steps.  The reference's
+``ensure_varying`` marks a carry for JAX's varying-manual-axes checker and
+has no counterpart here (``ROADMAP.md`` §C).
 """
 
 from __future__ import annotations
@@ -49,7 +56,8 @@ import torch
 from torch import nn
 
 from ..core import rng
-from .sharding_rules import (PartitionSpec, _entry_axes, batch_spec,
+from .sharding_rules import (PartitionSpec, _entry_axes, _flatten_with_path,
+                             _map_with_path, batch_spec,
                              build_param_specs, build_state_shardings,
                              gather_full, local_shard, replicated_spec,
                              spec_shards, without_axis)
@@ -799,3 +807,390 @@ def make_gspmd_sharded_init_step(loss_of, build_params, optimizer, mesh,
     return make_gspmd_step_from_loss(loss_of, build_params(seed), optimizer,
                                      mesh, meta_layer, zero_stage, donate,
                                      grad_comm)
+
+
+# --------------------------------------------------------------------------
+# the pipeline schedules (the pipe axis)
+# --------------------------------------------------------------------------
+#
+# The reference runs one program: a ``lax.scan`` over M+S-1 ticks with a
+# ``ppermute`` hop a tick, differentiated by AD (GPipe order, remat per
+# tick).  Here each pipe rank is a process running its own stage, and the
+# order is 1F1B (Paddle's ``forward_backward_pipeline``; interleaved as
+# Megatron's, chunk v of rank d being global stage v*S + d): a rank starts
+# the backward of its oldest micro-batch as soon as it can, so under plain
+# 1F1B it keeps at most S - d micro-batches' activations (the reference's
+# GPipe keeps M).  Activations go to the next global stage and their
+# gradients come back by point-to-point exchanges.  Every rank derives the
+# same tick table from the ranks' orders (``pipeline_ticks``) and posts
+# both sides of each message at the boundary after the tick that made it
+# (``collective.p2p_exchange``): a rank's exchange at boundary t waits
+# only on ranks that reach t after finishing every earlier boundary, so no
+# order of sends can deadlock.
+
+#: the p2p exchanges of the schedules in this process: their wall time
+#: (waits for the peer included), messages sent and bytes sent
+PIPE_P2P = {"seconds": 0.0, "messages": 0, "bytes": 0}
+
+_HEADER = 10
+_WIRE_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64,
+                torch.int64, torch.int32, torch.int16, torch.int8,
+                torch.uint8, torch.bool)
+
+
+def pipeline_order(n_stages: int, n_chunks: int, n_microbatches: int,
+                   stage: int, forward_only: bool = False):
+    """Stage ``stage``'s ops in order: ``("F" | "B", microbatch, chunk)``.
+    Megatron's 1F1B: a warm-up of forwards (S - d - 1; interleaved,
+    2 (S - d - 1) + (V - 1) S, or all of them when M equals S), then one
+    forward and one backward in turn, then the remaining backwards.  The
+    k-th forward of the interleaved order runs chunk (k mod SV) // S on
+    micro-batch (k // SV) S + k mod S, and the k-th backward the chunks in
+    reverse (``M % S == 0`` there)."""
+    S, V, M = n_stages, n_chunks, n_microbatches
+    total = M * V
+
+    def op(kind, k):
+        v = (k % (S * V)) // S
+        m = (k // (S * V)) * S + k % S
+        return kind, m, (v if kind == "F" else V - 1 - v)
+
+    if forward_only:
+        warm = total
+    elif V == 1:
+        warm = min(S - stage - 1, M)
+    elif M == S:
+        warm = total
+    else:
+        warm = min(2 * (S - stage - 1) + (V - 1) * S, total)
+    ops = [op("F", k) for k in range(warm)]
+    for i in range(total - warm):
+        ops += [op("F", warm + i), op("B", i)]
+    if not forward_only:
+        ops += [op("B", k) for k in range(total - warm, total)]
+    return ops
+
+
+def pipeline_ticks(n_stages: int, n_chunks: int, n_microbatches: int,
+                   forward_only: bool = False):
+    """The schedule every rank runs: for each stage its ``[(tick, op)]``.
+    Each stage takes its next op (``pipeline_order``) at the first tick
+    after the op it needs has run: the previous global stage's forward of
+    that micro-batch, the next one's backward (the last stage's backward
+    needs its own forward, which its order puts first)."""
+    S, V, M = n_stages, n_chunks, n_microbatches
+    G = S * V
+    orders = [pipeline_order(S, V, M, d, forward_only) for d in range(S)]
+    pos, done = [0] * S, {}
+    out = [[] for _ in range(S)]
+    t = 0
+    while any(pos[d] < len(orders[d]) for d in range(S)):
+        ran = []
+        for d in range(S):
+            if pos[d] == len(orders[d]):
+                continue
+            kind, m, v = orders[d][pos[d]]
+            g = v * S + d
+            if kind == "F":
+                need = ("F", g - 1, m) if g > 0 else None
+            else:
+                need = ("B", g + 1, m) if g < G - 1 else None
+            if need is None or done.get(need, t) < t:
+                ran.append((d, (kind, m, v), (kind, g, m)))
+        if not ran:
+            raise RuntimeError(f"the pipeline order stalls at tick {t} "
+                               f"(S {S}, V {V}, M {M})")
+        for d, o, key in ran:
+            out[d].append((t, o))
+            done[key] = t
+            pos[d] += 1
+        t += 1
+    return out
+
+
+def _header(t):
+    h = torch.zeros(_HEADER, dtype=torch.int64)
+    h[0] = _WIRE_DTYPES.index(t.dtype)
+    h[1] = t.dim()
+    h[2:2 + t.dim()] = torch.tensor(t.shape, dtype=torch.int64)
+    return h.to(t.device)
+
+
+def _from_header(h, device):
+    h = h.tolist()
+    return torch.empty(h[2:2 + h[1]], dtype=_WIRE_DTYPES[h[0]],
+                       device=device)
+
+
+def broadcast_from(t, src: int, group, device):
+    """Global rank ``src``'s tensor ``t`` on every rank of ``group`` (the
+    others pass None): its shape and dtype first, then its values."""
+    from .collective import broadcast
+    head = _header(t) if t is not None else \
+        torch.zeros(_HEADER, dtype=torch.int64, device=device)
+    broadcast(head, src=src, group=group)
+    if t is None:
+        t = _from_header(head.cpu(), device)
+    return broadcast(t.contiguous(), src=src, group=group)
+
+
+def _warm_group(group, device):
+    """One all-reduce over ``group`` before its first batched p2p call:
+    NCCL's ``batch_isend_irecv`` needs every rank in a group's first
+    collective."""
+    from .collective import all_reduce
+    if group.backend == "nccl" and not getattr(group, "_p2p_warm", False):
+        all_reduce(torch.zeros(1, device=device), group=group)
+        group._p2p_warm = True
+
+
+def run_pipeline(fwd, leaves, uses, microbatches, n_stages: int,
+                 n_chunks: int, group, loss_fn=None, call=None):
+    """This rank's part of the pipeline over ``group`` (the pipe group; this
+    rank is stage ``group.rank``).
+
+    - ``fwd(v, x, m)``: chunk ``v``'s output for input ``x`` of
+      micro-batch ``m`` (global stage ``v * S + group.rank``; global
+      stage 0 is given ``microbatches[m]``);
+    - ``leaves``: the tensors the backward differentiates, ``uses[v]``
+      the indices of those chunk ``v`` reads;
+    - ``loss_fn(y, m)``: the loss of the last global stage's output of
+      micro-batch ``m``; None runs the forward only;
+    - ``call(v, thunk)``: runs ``thunk()`` (a forward, or a backward that
+      may recompute one) with chunk ``v``'s parameters in place.
+
+    Returns ``(outputs, loss, grads, input_grads)``: the last global
+    stage's outputs (a list of M, on the last stage only, forward only),
+    the sum of the micro-batch losses (on the last stage; else None),
+    one gradient a leaf (summed over micro-batches; None where unused),
+    and the gradients of floating ``microbatches`` on global stage 0."""
+    from .collective import p2p_exchange
+    import time
+    S, V, M = n_stages, n_chunks, len(microbatches)
+    G, d = S * V, max(group.rank, 0)
+    train = loss_fn is not None
+    call = call or (lambda v, thunk: thunk())
+    ticks = pipeline_ticks(S, V, M, forward_only=not train)
+    mine = dict(ticks[d])
+    # messages into this rank, by boundary: (kind, global stage, mb)
+    incoming = {}
+    for e in range(S):
+        for t, (kind, m, v) in ticks[e]:
+            g = v * S + e
+            to = g + 1 if kind == "F" else g - 1
+            if 0 <= to < G and to % S == d and (kind == "F" or g > 0):
+                incoming.setdefault(t, []).append((kind, to, m, e))
+    ranks = group.ranks
+    dev = next((t.device for t in list(microbatches) + list(leaves)
+                if isinstance(t, torch.Tensor)), torch.device("cpu"))
+    _warm_group(group, dev)
+    store, inbox, outbox = {}, {}, None
+    grads = [None] * len(leaves)
+    in_grads = [None] * M
+    outputs, loss = [None] * M, None
+
+    def forward(m, v):
+        nonlocal loss
+        g = v * S + d
+        x = microbatches[m] if g == 0 else inbox.pop(("F", g, m))
+        x_in = x.detach()
+        if train and x_in.is_floating_point():
+            x_in.requires_grad_(True)
+
+        def thunk():
+            y = fwd(v, x_in, m)
+            return y, (loss_fn(y, m) if train and g == G - 1 else None)
+        with torch.set_grad_enabled(train):
+            y, lm = call(v, thunk)
+        if train:
+            store[(g, m)] = (x_in, y, lm)
+        if g == G - 1:
+            if train:
+                loss = lm.detach() if loss is None else loss + lm.detach()
+            else:
+                outputs[m] = y.detach()
+            return None
+        return ("F", y.detach(), ranks[(g + 1) % S])
+
+    def backward(m, v):
+        g = v * S + d
+        x_in, y, lm = store.pop((g, m))
+        idx = [i for i in uses[v] if leaves[i].requires_grad]
+        inputs = [leaves[i] for i in idx]
+        if x_in.requires_grad:
+            inputs.append(x_in)
+        if g == G - 1:
+            outs, g_out = [lm], None
+        else:
+            outs, g_out = [y], [inbox.pop(("B", g, m))]
+
+        def thunk():
+            return torch.autograd.grad(outs, inputs, g_out,
+                                       allow_unused=True)
+        gs = call(v, thunk)
+        for i, gi in zip(idx, gs):
+            if gi is not None:
+                grads[i] = gi if grads[i] is None else grads[i] + gi
+        if not x_in.requires_grad:
+            return None
+        gx = gs[-1] if gs[-1] is not None else torch.zeros_like(x_in)
+        if g == 0:
+            in_grads[m] = gx
+            return None
+        return ("B", gx, ranks[(g - 1) % S])
+
+    def exchange(t, out):
+        """Boundary ``t``: forward headers first (the receiver sizes its
+        buffer from them), then every payload."""
+        come = incoming.get(t, [])
+        if out is None and not come:
+            return
+        t0 = time.perf_counter()
+        fwd_in = [(to, m, e) for kind, to, m, e in come if kind == "F"]
+        sends = [(_header(out[1]), out[2])] \
+            if out is not None and out[0] == "F" else []
+        heads = [(torch.zeros(_HEADER, dtype=torch.int64, device=dev),
+                  ranks[e]) for _, _, e in fwd_in]
+        p2p_exchange(sends, heads, group)
+        recvs = []
+        for (to, m, e), (h, src) in zip(fwd_in, heads):
+            buf = _from_header(h.cpu(), dev)
+            inbox[("F", to, m)] = buf
+            recvs.append((buf, src))
+        for kind, to, m, e in come:
+            # an integer activation sends no gradient back
+            if kind == "B" and store[(to, m)][1].is_floating_point():
+                buf = torch.empty_like(store[(to, m)][1])
+                inbox[("B", to, m)] = buf
+                recvs.append((buf, ranks[e]))
+        sends = [(out[1], out[2])] if out is not None else []
+        p2p_exchange(sends, recvs, group)
+        PIPE_P2P["seconds"] += time.perf_counter() - t0
+        for p, _ in sends:
+            PIPE_P2P["messages"] += 1
+            PIPE_P2P["bytes"] += p.numel() * p.element_size()
+
+    for t in sorted(set(mine) | set(incoming)):
+        out = None
+        if t in mine:
+            kind, m, v = mine[t]
+            out = forward(m, v) if kind == "F" else backward(m, v)
+        exchange(t, out)
+    return outputs, loss, grads, in_grads
+
+
+def _tree_leaves(tree):
+    return [x for _, x in _flatten_with_path(tree)]
+
+
+def _tree_build(tree, leaves):
+    """``tree``'s structure holding ``leaves`` in ``_tree_leaves``
+    order."""
+    paths = ["/".join(map(str, p)) for p, _ in _flatten_with_path(tree)]
+    new = dict(zip(paths, leaves))
+    return _map_with_path(lambda path, _: new[path], tree)
+
+
+def _pipe_group(group):
+    if group is not None:
+        return group
+    from .topology import get_hybrid_communicate_group
+    hcg = get_hybrid_communicate_group()
+    if hcg is None:
+        raise ValueError("no pipe group: pass group= or fleet.init a "
+                         "hybrid group with a pp_degree")
+    return hcg.get_pipe_parallel_group()
+
+
+def _schedule(stage_fn, chunk_trees, microbatches, S, V, group, loss_fn):
+    """``spmd_pipeline*``'s shared body: ``chunk_trees[v]`` the
+    parameter tree of chunk v."""
+    from .collective import broadcast
+    group = _pipe_group(group)
+    if group.nranks != S:
+        raise ValueError(f"the pipe group has {group.nranks} ranks, not "
+                         f"n_stages ({S})")
+    mbs = list(microbatches.unbind(0)) \
+        if isinstance(microbatches, torch.Tensor) else list(microbatches)
+    leaves, uses = [], []
+    for tree in chunk_trees:
+        own = [t.detach().requires_grad_(t.is_floating_point()
+                                         and loss_fn is not None)
+               for t in _tree_leaves(tree)]
+        uses.append(list(range(len(leaves), len(leaves) + len(own))))
+        leaves += own
+    built = [_tree_build(tree, [leaves[i] for i in uses[v]])
+             for v, tree in enumerate(chunk_trees)]
+
+    def fwd(v, x, m):
+        return stage_fn(built[v], x, m, v)
+
+    outputs, loss, grads, in_grads = run_pipeline(
+        fwd, leaves, uses, mbs, S, V, group, loss_fn)
+    last = group.ranks[S - 1]
+    dev = mbs[0].device
+    if loss_fn is None:
+        y = torch.stack(outputs) if group.rank == S - 1 else None
+        return broadcast_from(y, last, group, dev)
+    loss = loss if loss is not None else torch.zeros((), device=dev)
+    loss = broadcast(loss.float().contiguous(), src=last, group=group)
+    g = [torch.zeros_like(t) if gi is None else gi
+         for t, gi in zip(leaves, grads)]
+    per_chunk = [_tree_build(tree, [g[i] for i in uses[v]])
+                 for v, tree in enumerate(chunk_trees)]
+    x_grads = None
+    if group.rank == 0 and all(gx is not None for gx in in_grads):
+        x_grads = torch.stack(in_grads)
+    return loss, per_chunk, x_grads
+
+
+def spmd_pipeline(stage_fn, stage_params, microbatches, n_stages: int,
+                  group=None, loss_fn=None):
+    """The reference's ``spmd_pipeline`` on this rank of the pipe group
+    ``group`` (default: the hybrid group's), as the 1F1B schedule above.
+
+    ``stage_fn(stage_params, x, microbatch_index) -> y``: this rank's
+    stage on its parameters (a tensor or a dict/list tree of them);
+    ``microbatches`` (M, mb, ...) or a list of M inputs, read on the first
+    stage.  Without ``loss_fn`` the forward only, returning the last
+    stage's (M, mb, ...) outputs on every rank (as the reference).  With
+    ``loss_fn(y, microbatch_index) -> scalar`` forward and backward,
+    returning ``(loss, grads, microbatch_grads)``: the sum of the
+    micro-batch losses on every rank, the gradients of ``stage_params``
+    (its tree), and on the first stage those of floating
+    ``microbatches`` (M, mb, ...) (None elsewhere)."""
+    out = _schedule(lambda p, x, m, v: stage_fn(p, x, m), [stage_params],
+                    microbatches, n_stages, 1, group, loss_fn)
+    if loss_fn is None:
+        return out
+    loss, per_chunk, x_grads = out
+    return loss, per_chunk[0], x_grads
+
+
+def spmd_pipeline_interleaved(stage_fn, chunk_params, microbatches,
+                              n_stages: int, n_chunks: int, group=None,
+                              loss_fn=None):
+    """The reference's ``spmd_pipeline_interleaved``: this rank holds
+    ``n_chunks`` (V) chunks, chunk v being global stage v*S + rank, and
+    runs Megatron's interleaved 1F1B (``pipeline_order``).
+    ``stage_fn(chunk_local_params, x, microbatch_index, chunk_index)``;
+    ``chunk_params`` a tensor or tree whose leaves have leading dim V.
+    Returns as :func:`spmd_pipeline`, the gradients with ``chunk_params``'
+    leading dim V."""
+    S, V = n_stages, n_chunks
+    M = (microbatches.shape[0] if isinstance(microbatches, torch.Tensor)
+         else len(microbatches))
+    if M % S:
+        raise ValueError(
+            f"n_microbatches ({M}) must be a multiple of the pipeline "
+            f"degree ({S}) for the interleaved schedule")
+    leaves = _tree_leaves(chunk_params)
+    trees = [_tree_build(chunk_params, [a[v] for a in leaves])
+             for v in range(V)]
+    out = _schedule(stage_fn, trees, microbatches, S, V, group, loss_fn)
+    if loss_fn is None:
+        return out
+    loss, per_chunk, x_grads = out
+    stacked = [torch.stack(gs) for gs in zip(*(_tree_leaves(t)
+                                                for t in per_chunk))]
+    return loss, _tree_build(chunk_params, stacked), x_grads

@@ -9,8 +9,11 @@ device at flat position r of that mesh (``ProcessMesh``), and the hybrid
 group builds one ``torch.distributed`` process group per axis and per
 coordinate, in ``HYBRID_AXES`` order, on every rank, and one group for
 each combination of the batch axes the train steps reduce over
-(``BATCH_AXES``, ``GRAD_AXES``).  The data, sharding, sep and model axes
-run; a pipe degree above 1 raises (ROADMAP A7c).
+(``BATCH_AXES``, ``GRAD_AXES``).  All five axes run: the pipe axis
+through ``distributed.spmd``'s schedules, whose stages reach their
+neighbours by point-to-point sends over the pipe group
+(``is_first_stage``, ``is_last_stage``, ``_get_p2p_prev_rank``,
+``_get_p2p_next_rank``, as Paddle's hybrid group names them).
 """
 
 from __future__ import annotations
@@ -174,11 +177,6 @@ class HybridCommunicateGroup:
             sharding_degree = dims.get("sharding", 1)
             sep_degree = dims.get("sep", 1)
             mp_degree = dims.get("model", 1)
-        if int(pp_degree) > 1:
-            raise NotImplementedError(
-                f"pp_degree {pp_degree} waits for ROADMAP A7c (the pipeline "
-                f"engine); this port runs the data, sharding, sep and model "
-                f"axes")
         self._dp_degree = dp_degree
         self._mp_degree = mp_degree
         self._pp_degree = pp_degree
@@ -203,6 +201,9 @@ class HybridCommunicateGroup:
         self._groups = self._build_groups()
         self._mesh = ProcessMesh(self._axis_names, self._dims,
                                  self.global_rank, self._groups)
+        self.stage_id = self.get_stage_id()
+        self.is_first_stage = self.stage_id == 0
+        self.is_last_stage = self.stage_id == self._pp_degree - 1
 
     def _build_groups(self):
         """Every rank creates every axis group in the same order, then a
@@ -314,6 +315,20 @@ class HybridCommunicateGroup:
 
     def get_p2p_groups(self):
         return None
+
+    def _pipe_neighbour(self, step: int) -> int:
+        ranks = self._group("pipe").ranks
+        return ranks[(self.stage_id + step) % len(ranks)]
+
+    def _get_p2p_next_rank(self) -> int:
+        """The global rank of the next pipe stage (the first stage after
+        the last: the interleaved schedule's ring)."""
+        return self._pipe_neighbour(1)
+
+    def _get_p2p_prev_rank(self) -> int:
+        """The global rank of the previous pipe stage (the last before
+        the first)."""
+        return self._pipe_neighbour(-1)
 
     def topology(self):
         return self._topo

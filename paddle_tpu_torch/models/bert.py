@@ -388,7 +388,8 @@ def make_bert_train_step(model: BertModel, optimizer, hcg=None,
     ``distributed.zero`` (the reference's BERT step takes no such
     argument: its ZeRO is the sharded-init specs,
     ``make_sharded_bert_train_step``), and raises with a model degree
-    (ROADMAP A7b).  Sep and pipe degrees raise (ROADMAP A7b/A7c)."""
+    (ROADMAP A7b).  A sep degree raises (ROADMAP A7b); a pipe degree is
+    held replicated, as the reference's step holds it."""
     from ..distributed.grad_comm import comm_info, resolve_policy
     from ..distributed.spmd import make_gspmd_step_from_loss
     from ..telemetry import instrument_train_step

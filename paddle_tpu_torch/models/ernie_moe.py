@@ -301,8 +301,9 @@ def make_ernie_moe_train_step(model: ErnieMoeModel, optimizer, hcg=None,
     global batch and takes its rows, holds its shards (module docstring),
     and the loss is the global mean.  ``monitor`` (a ``telemetry.
     TrainMonitor``) wraps the step as ``make_gpt_train_step``'s does,
-    counting each token once.  A sep or pipe degree raises, and so do
-    the layouts ``_check_ernie_mesh`` names (ROADMAP A7b, A7c)."""
+    counting each token once.  A sep degree raises, and so do the
+    layouts ``_check_ernie_mesh`` names (ROADMAP A7b); a pipe degree is
+    held replicated, as the reference's step holds it."""
     from ..distributed.spmd import make_gspmd_step_from_loss
     from ..telemetry import instrument_train_step
 

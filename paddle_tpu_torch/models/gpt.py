@@ -5,7 +5,9 @@ block pools, the tied head), the KV-cache path (``prefill``,
 the mixin) and the single-device training path
 (``embed_fn`` → ``scan_blocks`` over flash-attention blocks →
 ``head_loss_fn``, and ``make_gpt_train_step``) over one device or a
-hybrid mesh of data, sharding, sep and model ranks.
+hybrid mesh of data, pipe, sharding, sep and model ranks (the pipe axis
+through ``distributed.pipeline_engine``: the blocks split over the pipe
+ranks, the embedding on the first stage, the tied head on the last).
 
 The parameters keep the reference's names and stacked ``[L, …]`` layout
 (``stacked_param_names``), so a numpy state dict moves between the two
@@ -634,17 +636,17 @@ def _mesh_degrees(hcg):
 
 
 def _check_degrees(hcg, runs=()):
-    """The pipe degree waits for its slice, and so do the model and sep
-    degrees of a model not in ``runs`` (BERT's and ERNIE-MoE's sequence
-    parallelism: ROADMAP A7b); returns the hybrid group's mesh (None
-    without one)."""
+    """The model and sep degrees of a model not in ``runs`` wait for their
+    slice (BERT's and ERNIE-MoE's sequence parallelism: ROADMAP A7b); a
+    pipe degree runs everywhere (GPT's pipeline; BERT and ERNIE-MoE, as
+    the reference, hold the pipe axis replicated).  Returns the hybrid
+    group's mesh (None without one)."""
     degrees = _mesh_degrees(hcg)
-    for axis, item in (("mp", "A7b"), ("sep", "A7b"), ("pp", "A7c")):
+    for axis in ("mp", "sep"):
         if axis not in runs and degrees.get(axis, 1) > 1:
             raise NotImplementedError(
-                f"{axis} degree {degrees[axis]} waits for ROADMAP {item} "
-                f"(BERT's and ERNIE-MoE's sequence parallelism A7b, the "
-                f"pipeline A7c)")
+                f"{axis} degree {degrees[axis]} waits for ROADMAP A7b "
+                f"(BERT's and ERNIE-MoE's sequence parallelism)")
     return None if hcg is None else hcg.mesh
 
 
@@ -662,20 +664,21 @@ def _refuse_composed(hcg, what):
 def _rank_batch_info(mesh):
     """``instrument_train_step``'s (examples, tokens) for a rank that takes
     1/R of the rows it is given and 1/S of their sequence (None on one
-    rank): a model group counts its tokens once (on its first rank), and
-    a sep group its examples once."""
+    rank): a model group and a pipe group count their tokens once (on
+    their first rank), and a sep group its examples once."""
     if mesh is None or mesh.size <= 1:
         return None
     from ..telemetry import _default_batch_info
     R = mesh.batch_group()[0].nranks
     S = mesh.shape.get("sep", 1)
-    first_mp = mesh.coord.get("model", 0) == 0
+    first = mesh.coord.get("model", 0) == 0 and \
+        mesh.coord.get("pipe", 0) == 0
     first_sep = mesh.coord.get("sep", 0) == 0
 
     def info(args, kwargs):
         ex, tok = _default_batch_info(args)
-        return (ex // R if first_mp and first_sep else 0,
-                tok // (R * S) if first_mp else 0)
+        return (ex // R if first and first_sep else 0,
+                tok // (R * S) if first else 0)
     return info
 
 
@@ -737,12 +740,27 @@ def make_gpt_train_step(model: GPTModel, optimizer, hcg=None,
     (with ``comm`` events under a compressing policy; each rank counts its
     own rows).  ``dynamic_loss_scale`` outside ZeRO, ``virtual_pp_degree``
     and ``n_microbatches`` are ignored, as in the reference off its
-    pipeline branch.  A pipe degree raises (ROADMAP A7c); ZeRO or update
-    sharding with a model or sep degree raises (ROADMAP A7b)."""
+    pipeline branch.  ZeRO or update sharding with a model or sep degree
+    raises (ROADMAP A7b).
+
+    A pipe degree S > 1 takes the pipeline (``distributed.
+    pipeline_engine.make_stacked_pipeline_step``): the blocks split over
+    the pipe ranks, 1F1B over ``max(n_microbatches, S)`` micro-batches,
+    interleaved over ``virtual_pp_degree`` chunks (default the hybrid
+    group's), composed with data and model degrees.  There, as in the
+    reference, a ``grad_comm`` other than fp32, ZeRO and
+    ``dynamic_loss_scale`` raise ``NotImplementedError`` and a
+    ``sequence_parallel`` mode over sep ranks ``ValueError``; update
+    sharding, and sep ranks without a mode, raise too."""
     from ..distributed.grad_comm import comm_info, resolve_policy
     from ..distributed.spmd import make_gspmd_step_from_loss
     from ..telemetry import instrument_train_step
 
+    if _mesh_degrees(hcg).get("pp", 1) > 1:
+        return _gpt_pipeline_step(model, optimizer, hcg, n_microbatches,
+                                  remat, donate, zero_stage,
+                                  dynamic_loss_scale, virtual_pp_degree,
+                                  monitor, grad_comm, update_sharding)
     if zero_stage > 0 and update_sharding:
         raise ValueError(
             "update_sharding composes the plain-DP regime; zero_stage>0 "
@@ -786,6 +804,59 @@ def make_gpt_train_step(model: GPTModel, optimizer, hcg=None,
 
     if hasattr(inner, "layout"):
         step.layout = inner.layout
+    return step, state0
+
+
+def _gpt_pipeline_step(model, optimizer, hcg, n_microbatches, remat,
+                       donate, zero_stage, dynamic_loss_scale,
+                       virtual_pp_degree, monitor, grad_comm,
+                       update_sharding):
+    """``make_gpt_train_step``'s pipe branch (reference
+    ``paddle_tpu/models/gpt.py:461-485``): its refusals, then the stacked
+    pipeline step with the embedding on the first global stage and the
+    tied head on the last."""
+    from ..distributed.grad_comm import resolve_policy
+    from ..distributed.pipeline_engine import make_stacked_pipeline_step
+    policy = resolve_policy(grad_comm)
+    degrees = _mesh_degrees(hcg)
+    S = degrees["pp"]
+    if policy.name != "fp32":
+        raise NotImplementedError(
+            "grad_comm with pp_degree>1 is not wired yet: the stacked "
+            "pipeline step owns its own exchange schedule; use "
+            "pp_degree=1 for compressed gradient collectives")
+    if zero_stage > 0 or dynamic_loss_scale:
+        raise NotImplementedError(
+            "zero_stage/dynamic_loss_scale with pp_degree>1 is not wired "
+            "yet: the stacked pipeline step manages its own state layout. "
+            "Use pp_degree=1 for ZeRO")
+    if degrees.get("sep", 1) > 1:
+        if model.config.sequence_parallel:
+            raise ValueError(
+                "sequence_parallel with pp_degree>1 is not supported yet: "
+                "the pipeline's stages cannot nest the 'sep' ring; set "
+                "sep_degree=1 or pp_degree=1")
+        raise NotImplementedError(
+            "sep ranks beside a pipe degree wait for ROADMAP A7b (the "
+            "reference holds the sequence whole over them)")
+    if update_sharding:
+        raise NotImplementedError(
+            "update_sharding with pp_degree>1: the pipeline step keeps its "
+            "own state layout (ROADMAP §C)")
+    if virtual_pp_degree is None:
+        getter = getattr(hcg, "get_virtual_pipeline_degree", None)
+        virtual_pp_degree = getter() if getter else 1
+    mesh = hcg.mesh
+    params0 = dict(model.named_parameters())
+    par, _ = _mesh_context(model, mesh, params0)
+    step, state0 = make_stacked_pipeline_step(
+        lambda x, key: model.embed_fn(x, key, par), model.block_fn,
+        lambda h, labels: model.head_loss_fn(h, labels, par), params0,
+        optimizer, hcg, model.config.num_layers, max(n_microbatches, S),
+        model.stacked_param_names(), layer=model, donate=donate,
+        remat=remat, virtual_pp_degree=virtual_pp_degree, monitor=monitor,
+        bind=None if par is None else (lambda: par.bind(model)),
+        batch_info=_rank_batch_info(mesh))
     return step, state0
 
 

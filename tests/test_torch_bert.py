@@ -29,6 +29,7 @@ from paddle_tpu.models.bert import BertModel as JModel
 from paddle_tpu.models.bert import make_bert_train_step as j_make_step
 import paddle_tpu_torch.optimizer as TO
 from paddle_tpu_torch.core import flags as TFL
+from paddle_tpu_torch.distributed.topology import ProcessMesh
 from paddle_tpu_torch.models import bert as TB
 from paddle_tpu_torch.optimizer import opt_state_from_numpy
 from paddle_tpu_torch.ops import fused as TF
@@ -245,18 +246,25 @@ class TestTrainStep:
                                        dict(ta.named_parameters())[n]
                                        .detach(), rtol=1e-5, atol=1e-6)
         # ported: the sharded-init builder (tests/test_torch_dp_bert.py);
-        # a pipeline degree still waits for ROADMAP A7c
+        # a pipeline degree (ROADMAP A7c) holds the pipe axis replicated,
+        # as the reference's BERT steps do: rank 0 of two stages keeps
+        # every parameter whole
         step, st = TB.make_sharded_bert_train_step(
             TB.BertConfig(**TINY), opt, None, device="cpu")
         assert set(st) == {"params", "opt", "buffers"}
 
         class TwoStages:
+            mesh = ProcessMesh(("data", "pipe", "sharding", "sep", "model"),
+                               (1, 2, 1, 1, 1), rank=0)
+
             def get_pipe_parallel_world_size(self):
                 return 2
 
-        with pytest.raises(NotImplementedError, match="A7c"):
-            TB.make_sharded_bert_train_step(TB.BertConfig(**TINY), opt,
-                                            TwoStages(), device="cpu")
+        step, st = TB.make_sharded_bert_train_step(
+            TB.BertConfig(**TINY), opt, TwoStages(), device="cpu")
+        assert "pipe" not in str(step.layout.specs)
+        for n, p in st["params"].items():
+            assert p.shape == dict(tm.named_parameters())[n].shape, n
         with pytest.raises(ValueError, match="remat"):
             tm.scan_blocks(torch.zeros(1, 8, 128), remat="dots")
         with pytest.raises(ValueError, match="hidden_act"):

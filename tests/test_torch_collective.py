@@ -11,9 +11,10 @@ exp(sum(log|x|)), the port exactly).  The port's collectives act in place
 on the caller's tensor and return it (``ROADMAP.md`` §C).  The hybrid
 group's layout (rank r = flat mesh position r, dp 2 x sharding 2) is held
 against the reference's mesh.  Guards: the import grep, a JAX-free
-import, ``init_parallel_env()`` without a card, the pipe degree that
-waits for ROADMAP A7c, and the model/sep degrees that BERT's step and
-ZeRO wait for (ROADMAP A7b).
+import, ``init_parallel_env()`` without a card, the refusals GPT's
+pipeline keeps (ROADMAP A7c: ZeRO and update sharding over a pipe
+degree), and the model/sep degrees that BERT's step and ZeRO wait for
+(ROADMAP A7b).
 
 The spawned ranks import this module, so it imports no JAX at its top.
 """
@@ -383,22 +384,22 @@ class TestTopology:
                                              ("sep_degree", "A7b"),
                                              ("pp_degree", "A7c")])
     def test_model_pipe_sep_degrees_raise(self, degree, item):
-        """A pipe degree raises everywhere (A7c).  Model and sep degrees
-        run GPT (tests/test_torch_gpt_tp.py), and model degrees BERT
-        (tests/test_torch_bert_tp.py): the hybrid group takes them (here it
-        only asks for a world of two), and what still waits for A7b
-        raises: GPT's and BERT's ZeRO, GPT's update sharding."""
+        """Model and sep degrees run GPT (tests/test_torch_gpt_tp.py), and
+        model degrees BERT (tests/test_torch_bert_tp.py); a pipe degree
+        runs GPT's pipeline (A7c, tests/test_torch_gpt_pp.py).  The hybrid
+        group takes each of them (here it only asks for a world of two),
+        and what still waits raises: GPT's and BERT's ZeRO and GPT's
+        update sharding over model or sep ranks (A7b), GPT's ZeRO and
+        update sharding over pipe ranks (the pipeline step keeps its own
+        state layout, as the reference's)."""
         from paddle_tpu_torch.distributed import HybridCommunicateGroup
         from paddle_tpu_torch.models import bert as TB
         from paddle_tpu_torch.models.gpt import (GPTConfig, GPTModel,
                                                  make_gpt_train_step)
         import paddle_tpu_torch.optimizer as TO
-        if item == "A7c":
-            with pytest.raises(NotImplementedError, match=item):
-                HybridCommunicateGroup(**{degree: 2})
-        else:
-            with pytest.raises(ValueError, match="torch.distributed world"):
-                HybridCommunicateGroup(**{degree: 2})
+        with pytest.raises(ValueError, match="torch.distributed world"):
+            HybridCommunicateGroup(**{degree: 2})
+        match = "pp_degree>1" if item == "A7c" else item
         getter = {"mp_degree": "get_model_parallel_world_size",
                   "sep_degree": "get_sep_parallel_world_size",
                   "pp_degree": "get_pipe_parallel_world_size"}[degree]
@@ -408,8 +409,10 @@ class TestTopology:
                                max_position_embeddings=16,
                                compute_dtype="float32"), device="cpu")
         for kw in (dict(zero_stage=1), dict(update_sharding=True)):
-            with pytest.raises(NotImplementedError, match=item):
+            with pytest.raises(NotImplementedError, match=match):
                 make_gpt_train_step(m, TO.SGD(0.1), hcg, **kw)
+        if item == "A7c":
+            return      # BERT holds a pipe axis replicated, as the reference
         bert = TB.BertModel(TB.BertConfig(
             vocab_size=64, hidden_size=32, num_hidden_layers=1,
             num_attention_heads=2, max_position_embeddings=16,

@@ -22,8 +22,8 @@ checkpoints: the ep 2 ranks' ``CheckpointManager`` save loads bit-exact
 in the reference's one-process manager, and the reference's save loads
 bit-exact into each rank's shards.  The refusals that stay (a sep degree,
 an expert axis the batch is not split over, a sharding degree beside the
-expert axis, ZeRO with it) raise and name their ROADMAP item.  The
-spawned ranks import this module, so it imports no JAX at its top.
+expert axis, ZeRO with it) raise and name their ROADMAP item; a pipe
+degree holds the pipe axis replicated.  The spawned ranks import this module, so it imports no JAX at its top.
 """
 
 import datetime
@@ -488,8 +488,16 @@ def test_refusals_that_stay_name_their_item():
     opt = TO.AdamW(LR)
     with pytest.raises(NotImplementedError, match="ROADMAP A7b"):
         TE.make_ernie_moe_train_step(m, opt, _Degrees(sep=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP A7c"):
-        TE.make_ernie_moe_train_step(m, opt, _Degrees(pp=2))
+    # a pipe degree (ROADMAP A7c) holds the pipe axis replicated, as the
+    # reference's step does: rank 0 of two stages keeps every weight whole
+    from paddle_tpu_torch.distributed.topology import ProcessMesh
+    two = _Degrees(pp=2)
+    two.mesh = ProcessMesh(("data", "pipe", "sharding", "sep", "model"),
+                           (1, 2, 1, 1, 1), rank=0)
+    step, state = TE.make_ernie_moe_train_step(m, opt, two)
+    assert "pipe" not in str(step.layout.specs)
+    assert {n: p.shape for n, p in state["params"].items()} == \
+        {n: p.shape for n, p in m.named_parameters()}
     on_model = TE.ErnieMoeModel(TE.ErnieMoeConfig(**TINY,
                                                   expert_axis="model"),
                                 device="cpu")

@@ -16,8 +16,9 @@ checkpoints (``distributed/checkpoint.py``): the mp 2 and sep 2 states
 saved by the two ranks load bit-exact in the reference, and the
 reference's mp 2 state loads bit-exact into each rank's shards.  The
 refusals that stay (ZeRO and update sharding over model or sep ranks,
-the pipe degree, sharded init over sep ranks) raise and name their
-ROADMAP item.  The spawned ranks import this module, so it imports no
+sharded init over sep ranks) raise and name their ROADMAP item, and a
+pipe degree beside them runs the pipeline, whose ZeRO raises as the
+reference's.  The spawned ranks import this module, so it imports no
 JAX at its top.
 """
 
@@ -485,5 +486,8 @@ def test_refusals_that_stay_name_their_item(deg):
         TG.make_sharded_gpt_train_step(
             TG.GPTConfig(**TINY, sequence_parallel="ring"), TO.AdamW(LR),
             None, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7c"):
-        TG.make_gpt_train_step(m, TO.AdamW(LR), _Degrees(pp=2, **deg))
+    # a pipe degree (ROADMAP A7c) takes the pipeline, which keeps the
+    # reference's refusals
+    with pytest.raises(NotImplementedError, match="pp_degree>1"):
+        TG.make_gpt_train_step(m, TO.AdamW(LR), _Degrees(pp=2, **deg),
+                               zero_stage=1)

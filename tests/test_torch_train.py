@@ -299,12 +299,14 @@ class TestTrainStep:
             def get_pipe_parallel_world_size(self):
                 return 2
 
-        # data, sharding, model and sep degrees, ZeRO, update sharding and
-        # grad_comm are ported (tests/test_torch_dp.py, test_torch_zero.py,
-        # test_torch_gpt_tp.py); ZeRO over model ranks waits for ROADMAP
-        # A7b, pipe degrees for A7c
+        # data, sharding, model, sep and pipe degrees, ZeRO, update
+        # sharding and grad_comm are ported (tests/test_torch_dp.py,
+        # test_torch_zero.py, test_torch_gpt_tp.py, test_torch_gpt_pp.py);
+        # ZeRO over model ranks waits for ROADMAP A7b, and over pipe ranks
+        # it raises as the reference's pipeline does
         for kw, match in ((dict(hcg=TwoWay(), zero_stage=1), "A7b"),
-                          (dict(hcg=TwoStages()), "A7c")):
+                          (dict(hcg=TwoStages(), zero_stage=1),
+                           "pp_degree>1")):
             with pytest.raises(NotImplementedError, match=match):
                 make_gpt_train_step(tm, opt, **kw)
         with pytest.raises(ValueError, match="pick one"):
