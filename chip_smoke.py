@@ -229,7 +229,7 @@ Phases (any failure exits non-zero before the result lines):
    30528, hidden 768, 6 layers, 12 heads, 8 experts, top-2, expert hidden
    3072, max_pos 512, bf16, weights from seed 0) and the optimizer
    surface: (1) card vs CPU at hidden 768, 8 experts, 2 layers, fp32, B 2,
-   L 256, 5 steps of AdamW under LinearWarmup(CosineAnnealingDecay) with
+   L 256, 3 steps of AdamW under LinearWarmup(CosineAnnealingDecay) with
    ClipGradByGlobalNorm(1.0) from the same weights: losses within 1e-4
    relative, final parameters within 1e-5 and their change within 1e-2
    of its largest element, routing flips (tokens whose
@@ -240,7 +240,7 @@ Phases (any failure exits non-zero before the result lines):
    flash kernel a step; (3) phase 3's traffic through the ragged engine
    with graphs (B1 6 a step, the graph pool printed), 4 streams against
    ``generate()``, then again with a 1-layer GPT draft at K 2 (B1 7 and
-   B5 2 a step, streams equal to the plain arm's); (4) its first 12
+   B5 2 a step, streams equal to the plain arm's); (4) its first 8
    requests through the bucketed paged engine (ticks_per_sync 8; B5 6 a
    tick, B2 6 an admission at bucket 128, streams equal to the ragged
    arm's); the decode
@@ -2799,6 +2799,7 @@ def phase16():
 # ------------------------------------------------------------ phase 17 --
 
 GEN_B, GEN_P, GEN_N, GEN_K = 8, 128, 128, 4
+GEN_TRACE_N = 32        # the traced call's new tokens (a shorter trace)
 SAMPLED = dict(greedy=False, temperature=0.8, top_k=50, top_p=0.95)
 
 
@@ -2919,9 +2920,10 @@ def phase17_generate(model, card):
     say_gen_pools(model, "generate()", card)
     say(f"phase17 generate() greedy with graphs, one call traced (a step "
         f"is a token of all {GEN_B} rows; the prefill included):")
+    model.generate(ids, GEN_TRACE_N)          # its programs, untraced
     prof = start_profile(cpu=False)
-    model.generate(ids, GEN_N)
-    report_profile(prof, GEN_N)
+    model.generate(ids, GEN_TRACE_N)
+    report_profile(prof, GEN_TRACE_N)
 
     f0 = A.flash_fwd_cuda.launches
     with tempfile.TemporaryDirectory() as d:
@@ -3516,6 +3518,11 @@ ERNIE_BENCH = dict(vocab_size=30528, hidden_size=768, num_layers=6,
 # the bound sits well under that); the largest difference of the
 # parameters' change, relative to the change's norm
 ERNIE_LOSS_TOL, ERNIE_PARAM_TOL, ERNIE_DELTA_TOL = 1e-4, 1e-5, 1e-2
+# the depth of (1) and (4): 3 card-vs-CPU steps (5 before, cut for the
+# script's time limit: the CPU's fp32 steps dominate (1)) and the first 8
+# requests through the bucketed engine (12 before: each diverging stream
+# costs two eager replays)
+ERNIE_CPU_STEPS, ERNIE_BUCKETED_REQS = 3, 8
 ROUTE_TIE = 1e-5       # fp32 gate probabilities this close may route apart
 
 OPT_RTOL, OPT_ATOL = 1e-5, 1e-6   # eager optimizers, card vs CPU, fp32
@@ -3786,7 +3793,7 @@ def ernie_train_losses(model, batches, dev):
 
 def phase19_card_vs_cpu():
     """(1) ERNIE-MoE at hidden 768, 8 experts, top-2, expert hidden 3072,
-    2 layers, fp32: 5 steps of AdamW under LinearWarmup(Cosine) with
+    2 layers, fp32: 3 steps of AdamW under LinearWarmup(Cosine) with
     ClipGradByGlobalNorm(1.0) at B 2, L 256 from the same weights on the
     card and on the CPU."""
     from paddle_tpu_torch.models.ernie_moe import params_from_numpy
@@ -3799,7 +3806,8 @@ def phase19_card_vs_cpu():
     gpu_model = params_from_numpy(state, cfg, device="cuda")
     rng = np.random.RandomState(1)
     batches = [(rng.randint(0, cfg.vocab_size, (2, 256)),
-                rng.randint(0, cfg.vocab_size, (2, 256))) for _ in range(5)]
+                rng.randint(0, cfg.vocab_size, (2, 256)))
+               for _ in range(ERNIE_CPU_STEPS)]
     first = torch.from_numpy(batches[0][0])
     flips0, gap0 = routing_flips(gpu_model, cpu_model, first, cfg.top_k)
     gl = ernie_train_losses(gpu_model, batches, "cuda")
@@ -3819,7 +3827,8 @@ def phase19_card_vs_cpu():
                / moved[n].abs().max().item()
                for n, p in gpu_model.named_parameters())
     say(f"phase19 card vs CPU ERNIE-MoE train (hidden 768, 8 experts, "
-        f"top-2, 2 layers, fp32, B 2, L 256, 5 steps of AdamW under "
+        f"top-2, 2 layers, fp32, B 2, L 256, {ERNIE_CPU_STEPS} steps of "
+        f"AdamW under "
         f"LinearWarmup(CosineAnnealingDecay) with ClipGradByGlobalNorm(1.0)):"
         f" losses cuda {[round(x, 6) for x in gl]} cpu "
         f"{[round(x, 6) for x in cl]}, max rel diff {rel:.3e} (tol "
@@ -3968,7 +3977,7 @@ def phase19_ragged(model, reqs, card):
 
 
 def phase19_bucketed(model, reqs, streams, replays, card):
-    """(4) the first 12 requests through the bucketed paged engine
+    """(4) the first 8 requests through the bucketed paged engine
     (8 slots, max_len 512, block 16, buckets [64, 128], ticks_per_sync
     8): B5 6 launches a tick, B2 6 an admission at bucket 128, streams
     equal to the ragged arm's.  Returns (B5, B2) launches."""
@@ -3977,7 +3986,7 @@ def phase19_bucketed(model, reqs, streams, replays, card):
     from paddle_tpu_torch.serving_paged import PagedContinuousBatchingEngine
 
     Lyr, k = model.config.num_layers, 8
-    sub = reqs[:12]
+    sub = reqs[:ERNIE_BUCKETED_REQS]
 
     def paged():
         return PagedContinuousBatchingEngine(
@@ -4006,7 +4015,8 @@ def phase19_bucketed(model, reqs, streams, replays, card):
                                 replays)
              for i, r in enumerate(sorted(got))]
     tokens = sum(n for _, n in sub)
-    say(f"phase19 ERNIE-MoE bucketed paged serve (the first 12 requests, "
+    say(f"phase19 ERNIE-MoE bucketed paged serve (the first {len(sub)} "
+        f"requests, "
         f"{tokens} tokens, ticks_per_sync {k}) on {card}: "
         f"{eng.decode_syncs} syncs = {ticks} ticks, {tokens / wall:.1f} "
         f"tokens/s, {1e3 * wall / eng.decode_syncs:.3f} ms/sync, B5 "
@@ -5613,8 +5623,8 @@ def free_port():
 
 
 def launch22c(root, name, kill):
-    """One launch of 22c's trainer through the port's launcher: (wall s,
-    the launcher's stderr, each rank's results a run)."""
+    """Start one launch of 22c's trainer through the port's launcher;
+    ``finish22c`` waits for it."""
     import os
 
     out = Path(root) / name
@@ -5625,40 +5635,77 @@ def launch22c(root, name, kill):
         PYTHONPATH=str(Path(__file__).resolve().parent))
     if kill:
         env["REHEARSAL_FLAG"] = str(out / "fault_fired")
-    t0 = time.perf_counter()
-    try:
-        r = subprocess.run(
-            [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
-             "--nproc_per_node", "2", "--devices", "0,0", "--backend",
-             "gloo", "--master", f"127.0.0.1:{free_port()}",
-             "--elastic_level", "1", "--max_restarts", "2",
-             "--elastic_store", f"tcp://127.0.0.1:{free_port()}",
-             "--log_dir", str(out / "log"), str(out / "train.py")],
-            capture_output=True, text=True, timeout=LAUNCH_TIMEOUT, env=env)
-    except subprocess.TimeoutExpired:
-        fail(f"phase22c: the {name} launch ran past {LAUNCH_TIMEOUT} s")
-    wall = time.perf_counter() - t0
-    if r.returncode != 0:
+    log = open(out / "launcher.err", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node", "2", "--devices", "0,0", "--backend",
+         "gloo", "--master", f"127.0.0.1:{free_port()}",
+         "--elastic_level", "1", "--max_restarts", "2",
+         "--elastic_store", f"tcp://127.0.0.1:{free_port()}",
+         "--log_dir", str(out / "log"), str(out / "train.py")],
+        stdout=subprocess.DEVNULL, stderr=log, env=env)
+    return name, out, proc, log, time.perf_counter()
+
+
+def wait22c(started):
+    """Wait for ``start22c``'s launches: each one's wall s, by name."""
+    walls = {}
+    while len(walls) < len(started):
+        for name, _, proc, _, t0 in started:
+            if name not in walls and proc.poll() is not None:
+                walls[name] = time.perf_counter() - t0
+        late = [name for name, *_, t0 in started if name not in walls
+                and time.perf_counter() - t0 > LAUNCH_TIMEOUT]
+        if late:
+            fail(f"phase22c: the {late} launch ran past {LAUNCH_TIMEOUT} s")
+        time.sleep(0.1)
+    return walls
+
+
+def finish22c(launch, wall):
+    """(wall s, the launcher's stderr, each rank's results a run) of a
+    launch ``launch22c`` started, ended after ``wall`` s."""
+    name, out, proc, log, _ = launch
+    log.close()
+    err = (out / "launcher.err").read_text()
+    if proc.returncode != 0:
         logs = "".join((out / "log" / f"workerlog.{i}").read_text()[-1500:]
                        for i in (1,) if (out / "log" / "workerlog.1").exists())
-        fail(f"phase22c: the {name} launch exited {r.returncode}: "
-             f"{r.stderr[-3000:]} {logs}")
+        fail(f"phase22c: the {name} launch exited {proc.returncode}: "
+             f"{err[-3000:]} {logs}")
     runs = []
     for rank in range(2):
         p = out / f"rank{rank}.jsonl"
         runs.append([json.loads(line) for line in p.read_text().splitlines()]
                     if p.exists() else [])
-    return wall, r.stderr, runs
+    return wall, err, runs
 
 
-def phase22c(card, root):
+def start22c(root):
+    """Start 22c's two launches side by side (four ranks share the card,
+    beside 22b's two): the killed one and the unkilled one."""
+    return [launch22c(root, "killed", kill=True),
+            launch22c(root, "clean", kill=False)]
+
+
+def stop22c(started):
+    """Kill what is left of 22c's launches (after a failure)."""
+    for _, _, proc, log, _ in started:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def phase22c(card, started):
     """``python -m paddle_tpu_torch.distributed.launch`` over two gloo ranks
     on the card: rank 1 SIGKILLs itself after a committed save, the
     launcher restarts the pod, both ranks resume; against an unkilled
-    launch."""
-    wall_k, err, killed = launch22c(root, "killed", kill=True)
-    wall_c, _, clean = launch22c(root, "clean", kill=False)
-    check((Path(root) / "killed" / "fault_fired").exists()
+    launch (``start22c``'s two)."""
+    walls = wait22c(started)
+    (wall_k, err, killed), (wall_c, _, clean) = [
+        finish22c(s, walls[s[0]]) for s in started]
+    check((started[0][1] / "fault_fired").exists()
           and "elastic restart 1/" in err,
           f"phase22c: no restart after the kill: {err[-2000:]}")
     for rank in range(2):
@@ -5677,7 +5724,7 @@ def phase22c(card, root):
         f"pod restarted and resumed at step 4, losses "
         f"{[round(v, 5) for v in killed[0][0]['losses']]} equal to the "
         f"unkilled launch's steps 4-5; killed launch {wall_k:.1f} s, "
-        f"unkilled {wall_c:.1f} s")
+        f"unkilled {wall_c:.1f} s, side by side and beside 22b")
 
 
 def phase22(card):
@@ -5692,8 +5739,12 @@ def phase22(card):
         a_launches, _ = phase22a(card, root)
         gc.collect()
         torch.cuda.empty_cache()
-        b_launches = phase22b(card, root)
-        phase22c(card, root)
+        started = start22c(root)
+        try:
+            b_launches = phase22b(card, root)
+            phase22c(card, started)
+        finally:
+            stop22c(started)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     launches = [a + b for a, b in zip(a_launches, b_launches)]
@@ -7088,6 +7139,416 @@ def phase27(card):
     return launches
 
 
+# ------------------------------------------------------------ phase 28 --
+
+# (a) resnet50 at phase 23's widths over two data ranks, at a tenth of
+# phase 23's rate: at 0.1 a fresh resnet50's loss rises over the first
+# steps (7.596, 9.098, 10.550 on one rank at B 64 on an H100).  Against
+# the one-rank step on the same global batches: the first loss within
+# DPV_LOSS_RTOL (the same weights: only the sums' order and conv1's bf16
+# product over 32 rows, where one rank has 64, differ), the later ones
+# within DPV_LATER_RTOL, the parameters' and the running statistics' move
+# from the common start within DPV_PARAM_MOVE and DPV_STATS_MOVE of one
+# rank's move by norm (phases 21 and 25's measure), the parameters and
+# running statistics bit-equal across the ranks.  The later bounds are
+# wide: a fresh resnet50's fp32 steps land far apart from a small change
+# (on an H100 at this rate the later losses 2.1e-3 to 5.1e-3 apart, the
+# parameters' move 0.80 and the statistics' 0.0075 of one rank's);
+# (a2) holds the same step in float64 within VISION_TOL64.
+DPV_B, DPV_SIDE, DPV_STEPS, DPV_LR = 64, 224, 3, 0.01
+DPV_LOSS_RTOL, DPV_LATER_RTOL = 1e-5, 3e-2
+DPV_PARAM_MOVE, DPV_STATS_MOVE = 1.5, 0.1
+# (a2) resnet50 in float64 at 224x224 (B 16, 1000 classes, 2 steps): dp 2
+# against one rank within VISION_TOL64, as the families in (b)
+DPV64_B, DPV64_STEPS = 16, 2
+# (b) the seven families that draw, at phase 24b's small shapes
+DPF_NAMES = ("alexnet", "vgg16", "squeezenet1_1", "mobilenet_v2",
+             "googlenet", "inception_v3", "densenet121")
+DPF_B, DPF_STEPS = 4, 2
+# (c) the normalization layers of this slice on the card against the CPU,
+# |cuda - cpu| / (1 + |cpu|): a weight gradient sums 1,024 to 25,088 fp32
+# products a channel, in another order on each device
+NORM28_TOL = 1e-4
+
+
+def dp28_hcg(world):
+    import types
+
+    from paddle_tpu_torch.distributed.topology import ProcessMesh
+
+    if world == 1:
+        return types.SimpleNamespace(mesh=ProcessMesh(["data"], [1]))
+    return fleet_hcg(dp_degree=world)
+
+
+def dp28_model(name, dev):
+    """resnet50 (NHWC, 1000 classes, fp32; ``resnet50_f64`` in float64)
+    or a family at 10 classes in float64, from seed 0."""
+    from paddle_tpu_torch.vision import models as tm
+
+    torch.manual_seed(0)
+    if name == "resnet50":
+        return tm.resnet50(data_format="NHWC", device=dev)
+    if name == "resnet50_f64":
+        return tm.resnet50(data_format="NHWC", device=dev).double()
+    return getattr(tm, name)(num_classes=10, device=dev).double()
+
+
+def dp28_cell(name):
+    """(input shape, classes, input dtype, lr, steps) of a cell."""
+    if name == "resnet50":
+        return ((DPV_B, DPV_SIDE, DPV_SIDE, 3), 1000, torch.bfloat16,
+                DPV_LR, DPV_STEPS)
+    if name == "resnet50_f64":
+        return ((DPV64_B, DPV_SIDE, DPV_SIDE, 3), 1000, torch.float64,
+                DPV_LR, DPV64_STEPS)
+    side = 112 if name == "inception_v3" else 64
+    lr = dict((n, r) for n, _, r in FAMILY_CELLS)[name]
+    return (DPF_B, 3, side, side), 10, torch.float64, lr, DPF_STEPS
+
+
+def dp28_run(name, model, hcg, timed=None):
+    """``make_spmd_train_step`` (``F.cross_entropy``, phase 23's Momentum)
+    over ``hcg``'s mesh, step ``t`` on a global batch from seed 28 + t
+    under ``fold_in_step_key(VISION_KEY, t)``: the losses, the final state
+    and the ms a step after the first (``timed`` zeroes its counters
+    before them)."""
+    from paddle_tpu_torch.distributed import make_spmd_train_step
+    from paddle_tpu_torch.jit.functional import fold_in_step_key
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum
+
+    shape, classes, dtype, lr, steps = dp28_cell(name)
+    batches = []
+    for t in range(steps):
+        rng = np.random.RandomState(28 + t)
+        batches.append((
+            torch.from_numpy(rng.standard_normal(shape)).to("cuda", dtype),
+            torch.from_numpy(rng.randint(0, classes, shape[0])).cuda()))
+    step, state, _ = make_spmd_train_step(
+        model, lambda out, t: F.cross_entropy(out, t),
+        Momentum(learning_rate=lr, momentum=0.9, weight_decay=1e-4), hcg)
+    losses = []
+    for t, (x, y) in enumerate(batches):
+        if t == 1:
+            torch.cuda.synchronize()
+            if timed is not None:
+                timed()
+            t0 = time.perf_counter()
+        state, loss = step(state, fold_in_step_key(VISION_KEY, t), lr, [x],
+                           [y])
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / (steps - 1)
+    return losses, state, ms
+
+
+def dp28_host(state):
+    return {part: {n: v.detach().to("cpu", copy=True)
+                   for n, v in state[part].items()}
+            for part in ("params", "buffers")}
+
+
+def dp28_state(model):
+    return dp28_host({"params": dict(model.named_parameters()),
+                      "buffers": dict(model.named_buffers())})
+
+
+def dp28_worst(got, want):
+    """The largest ``|got - want| / (1 + |want|)`` over every parameter
+    and running statistic."""
+    return max(((got[p][n].double() - w.double()).abs()
+                / (1 + w.double().abs())).max().item()
+               for p in ("params", "buffers") for n, w in want[p].items())
+
+
+def dp28_moves(got, want, start):
+    """For the parameters and for the running statistics: the norm of
+    ``got - want`` over the norm of ``want - start`` (how far a rank's
+    move from the common start is from one rank's move; 0 for a model
+    without running statistics); then the three parameters that add most
+    to the first norm, each as (name, its norm of ``got - want``, its
+    norm of ``want - start``)."""
+    out, worst = [], []
+    for p in ("params", "buffers"):
+        err = move = 0.0
+        for n, w in want[p].items():
+            e = float((got[p][n].double() - w.double()).square().sum())
+            m = float((w.double() - start[p][n].double()).square().sum())
+            err, move = err + e, move + m
+            if p == "params":
+                worst.append((e, n, m))
+        out.append((err / move) ** 0.5 if move else 0.0)
+    worst.sort(reverse=True)
+    return out + [[(n, e ** 0.5, m ** 0.5) for e, n, m in worst[:3]]]
+
+
+def dp28_fingerprint(model):
+    """The float64 sum of every parameter and buffer: the ranks rebuild
+    each model from seed 0 on the card and check it against the one-rank
+    step's build."""
+    return sum(t.detach().double().sum().item()
+               for t in list(model.parameters()) + list(model.buffers()))
+
+
+def solo28(tmp):
+    """The one-rank runs: each cell's losses, ms/step and initial
+    fingerprint; its final state saved for the ranks."""
+    out = {}
+    for name in ("resnet50", "resnet50_f64") + DPF_NAMES:
+        model = dp28_model(name, "cuda")
+        fp = dp28_fingerprint(model)
+        losses, state, ms = dp28_run(name, model, dp28_hcg(1))
+        torch.save(dp28_host(state), f"{tmp}/solo_{name}.pt")
+        out[name] = dict(losses=losses, ms=ms, fingerprint=fp)
+        del model, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def rank28(rank, tmp, fingerprints):
+    """One of phase 28's two data ranks: resnet50 with BatchNorm and with
+    SyncBatchNorm (losses, ms/step, the gloo share, the batch-statistics
+    all-reduces a step, the worst difference from the one-rank state, the
+    running statistics), then each family's 2 steps."""
+    import datetime
+    import pickle
+
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.nn.functional import norm as N
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dist.init_parallel_env(backend="gloo", init_method=f"file://{tmp}/rdv",
+                           rank=rank, world_size=2,
+                           timeout=datetime.timedelta(seconds=600))
+    check("jax" not in sys.modules, "phase28: a rank imported jax")
+    hcg = dp28_hcg(2)
+    gloo = [0.0, 0]
+    run = C._run
+
+    def timed_run(name, group, inputs, outputs, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(name, group, inputs, outputs, fn)
+        torch.cuda.synchronize()
+        gloo[0] += time.perf_counter() - t0
+        gloo[1] += 1
+
+    marks = {}
+
+    def timed():
+        gloo[:] = [0.0, 0]
+        marks.update(N.BATCH_STATS)
+
+    C._run = timed_run
+    zero_counts()
+    out, plain = {}, None
+    for name, sync in [("resnet50", False), ("resnet50", True)] + [
+            (n, False) for n in ("resnet50_f64",) + DPF_NAMES]:
+        model = dp28_model(name, "cuda")
+        check(dp28_fingerprint(model) == fingerprints[name],
+              f"phase28 {name}: rank {rank}'s build from seed 0 differs "
+              f"from the one-rank step's")
+        start = dp28_state(model)
+        if sync:
+            nn.SyncBatchNorm.convert_sync_batchnorm(model)
+            check(sum(type(m).__name__ == "SyncBatchNorm"
+                      for m in model.modules()) == 53,
+                  "phase28: resnet50 converts to 53 SyncBatchNorm layers")
+        losses, state, ms = dp28_run(name, model, hcg, timed)
+        n = dp28_cell(name)[4] - 1
+        host = dp28_host(state)
+        solo = torch.load(f"{tmp}/solo_{name}.pt")
+        arm = dict(losses=losses, ms=ms, gloo_ms=1e3 * gloo[0] / n,
+                   calls=gloo[1] / n,
+                   bn_reduces=(N.BATCH_STATS["all_reduces"]
+                               - marks["all_reduces"]) / n,
+                   bn_bytes=(N.BATCH_STATS["bytes"] - marks["bytes"]) / n,
+                   worst=dp28_worst(host, solo),
+                   moves=dp28_moves(host, solo, start),
+                   state=host if name == "resnet50" else
+                   {"buffers": host["buffers"]})
+        if name == "resnet50" and not sync:
+            plain = host
+        elif sync:
+            arm["same_as_plain"] = losses == out["resnet50"]["losses"] and \
+                all(torch.equal(host[p][k], plain[p][k])
+                    for p in ("params", "buffers") for k in plain[p])
+        out[name + (" sync" if sync else "")] = arm
+        del model, state, host, solo, start
+        gc.collect()
+        torch.cuda.empty_cache()
+    C._run = run
+    out["launches"] = flash_counts()
+    with open(f"{tmp}/rank28_{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase28_norms(card):
+    """(c) LayerNorm, GroupNorm, InstanceNorm2D, LocalResponseNorm,
+    SpectralNorm and F.normalize on the card against the CPU from one set
+    of weights: the output and the gradients of ``sum(out * g)``, and
+    SpectralNorm's advanced u and v, in fp32."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+
+    cases = [("LayerNorm", (768,), (8, 128, 768)),
+             ("GroupNorm", (32, 256), (8, 256, 28, 28)),
+             ("InstanceNorm2D", (64,), (8, 64, 56, 56)),
+             ("LocalResponseNorm", (5,), (8, 96, 55, 55)),
+             ("SpectralNorm", ((768, 3072), 0, 1), (768, 3072)),
+             ("normalize", (), (64, 4096))]
+    worst = {}
+    for name, args, shape in cases:
+        rng = np.random.RandomState(28)
+        x = rng.standard_normal(shape).astype(np.float32)
+        g = rng.standard_normal(shape).astype(np.float32)
+        res = []
+        for dev in ("cpu", "cuda"):
+            torch.manual_seed(28)
+            with nn.building("cpu"):
+                layer = (None if name == "normalize"
+                         else getattr(nn, name)(*args))
+            if layer is not None:
+                with torch.no_grad():
+                    for p in layer.parameters():
+                        p.add_(0.1 * torch.randn(p.shape))
+                layer = layer.to(dev)
+            xt = torch.from_numpy(x).to(dev).requires_grad_()
+            out = F.normalize(xt) if layer is None else layer(xt)
+            (out * torch.from_numpy(g).to(dev)).sum().backward()
+            res.append([out.detach().cpu(), xt.grad.cpu()] + (
+                [] if layer is None else
+                [p.grad.cpu() for p in layer.parameters()]
+                + [b.detach().cpu() for b in layer.buffers()]))
+        worst[name] = max(((a - b).abs() / (1 + b.abs())).max().item()
+                          for b, a in zip(*res))
+    say(f"phase28 (c) the normalization layers on the card vs the CPU in "
+        f"fp32 (output, input and weight gradients, SpectralNorm's u and "
+        f"v), largest |cuda - cpu| / (1 + |cpu|): "
+        + ", ".join(f"{n} {w:.3e}" for n, w in worst.items())
+        + f" (tol {NORM28_TOL:g}); {card}")
+    for name, w in worst.items():
+        check(w <= NORM28_TOL,
+              f"phase28 (c) {name}: card vs CPU differ by {w}")
+
+
+def phase28(card):
+    """Data-parallel vision on two gloo ranks sharing the card, each
+    against the one-rank step on the same global batch: (a) resnet50 at
+    phase 23's widths (B 64, 224x224x3 bf16 input, fp32 parameters,
+    Momentum 0.01, 3 steps) with BatchNorm and with SyncBatchNorm, whose
+    batch statistics cover both ranks' rows, and (a2) in float64 (B 16,
+    2 steps); (b) the seven families that draw, at phase
+    24b's shapes in float64 for 2 steps, the masks each rank's rows of
+    the global draw; (c) the normalization layers on the card."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase28_")
+    zero_counts()
+    # cuDNN's default backward algorithms add in a varying order: one
+    # order a run lets SyncBatchNorm's run repeat BatchNorm's bit for bit
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    solo = solo28(tmp)
+    say("phase28: the data ranks share this one card over gloo (NCCL "
+        "refuses two ranks on one device)")
+    t_ranks = time.perf_counter()
+    mp.start_processes(rank28, args=(tmp, {n: r["fingerprint"] for n, r in
+                                           solo.items()}),
+                       nprocs=2, join=True, start_method="spawn")
+    t_ranks = time.perf_counter() - t_ranks
+    ranks = []
+    for r in range(2):
+        with open(f"{tmp}/rank28_{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    launches = [rk["launches"] for rk in ranks] + [flash_counts()]
+    check(all(sum(c) == 0 for c in launches),
+          f"phase28: a kernel of B2-B4/B6-B7 launched on a vision path "
+          f"that has none: {launches}")
+    for name in ("resnet50", "resnet50 sync", "resnet50_f64") + DPF_NAMES:
+        one = solo[name.split()[0]]
+        f64 = name not in ("resnet50", "resnet50 sync")
+        for rk in ranks:
+            a = rk[name]
+            if f64:
+                a["diffs"] = [abs(g - w) / (1 + abs(w))
+                              for g, w in zip(a["losses"], one["losses"])]
+                a["bounds"] = [VISION_TOL64] * len(a["diffs"])
+            else:
+                a["diffs"] = [abs(g - w) / abs(w)
+                              for g, w in zip(a["losses"], one["losses"])]
+                a["bounds"] = [DPV_LOSS_RTOL] + [DPV_LATER_RTOL] * (
+                    len(a["diffs"]) - 1)
+        a = ranks[0][name]
+        tol = (f"tol {VISION_TOL64:g}" if f64 else
+               f"the first within {DPV_LOSS_RTOL:g}, the rest within "
+               f"{DPV_LATER_RTOL:g}")
+        say(f"phase28 {name} dp 2 vs one rank on {card}: losses "
+            f"{[round(v, 6) for v in a['losses']]} vs "
+            f"{[round(v, 6) for v in one['losses']]} (differences a step, "
+            f"largest over the ranks, " + "/".join(
+                f"{max(rk[name]['diffs'][i] for rk in ranks):.3e}"
+                for i in range(len(a["diffs"])))
+            + f"{' relative to 1 + |one|' if f64 else ' relative'}, {tol}); "
+            f"state vs "
+            f"one rank's, largest |dp - one| / (1 + |one|) "
+            + "/".join(f"{rk[name]['worst']:.3e}" for rk in ranks)
+            + ", move from the start vs one rank's move (parameters, "
+            "running statistics) " + "/".join(
+                f"{rk[name]['moves'][0]:.3e}, {rk[name]['moves'][1]:.3e}"
+                for rk in ranks)
+            + " (rank 0's largest parameter terms, |dp - one| against "
+            "|one - start|: " + ", ".join(
+                f"{n} {e:.3e} of {m:.3e}" for n, e, m in a["moves"][2])
+            + f"){'' if f64 else f' (tol {DPV_PARAM_MOVE:g}, {DPV_STATS_MOVE:g})'}"
+            f"; ms/step "
+            + "/".join(f"{rk[name]['ms']:.3f} (gloo {rk[name]['gloo_ms']:.3f}"
+                       f", {rk[name]['calls']:.0f} calls)" for rk in ranks)
+            + f" vs one rank {one['ms']:.3f}; batch-statistics all-reduces "
+            f"a step {a['bn_reduces']:.0f} forward + as many backward, "
+            f"{a['bn_bytes'] / 2**10:.1f} KiB each way")
+        for r, rk in enumerate(ranks):
+            a = rk[name]
+            check(np.isfinite(a["losses"]).all() and all(
+                d <= b for d, b in zip(a["diffs"], a["bounds"])),
+                f"phase28 {name} rank {r}: losses {a['losses']} vs one "
+                f"rank {one['losses']}: differences {a['diffs']}, bounds "
+                f"{a['bounds']}")
+            check(a["worst"] <= VISION_TOL64 if f64
+                  else a["moves"][0] <= DPV_PARAM_MOVE
+                  and a["moves"][1] <= DPV_STATS_MOVE,
+                  f"phase28 {name} rank {r}: state vs one rank's: largest "
+                  f"{a['worst']:.3e}, moves {a['moves'][:2]}")
+        for part in ranks[1][name]["state"]:
+            check(all(torch.equal(ranks[0][name]["state"][part][k], v)
+                      for k, v in ranks[1][name]["state"][part].items()),
+                  f"phase28 {name}: the ranks' {part} differ")
+    say("phase28: every arm's running statistics, and resnet50's "
+        "parameters, bit-equal across the two ranks")
+    check(all(rk["resnet50 sync"]["same_as_plain"] for rk in ranks),
+          "phase28 (a): the SyncBatchNorm run is not bit-equal to the "
+          "BatchNorm run")
+    say("phase28 (a) SyncBatchNorm.convert_sync_batchnorm: losses, "
+        "parameters and running statistics bit-equal to the BatchNorm run "
+        "on both ranks")
+    torch.backends.cudnn.deterministic = was
+    phase28_norms(card)
+    say(f"phase28 took {time.perf_counter() - t0:.1f} s on {card} (the ranks "
+        f"{t_ranks:.1f} s); flash fwd/dq/dkv and fused LN fwd/bwd launches "
+        f"(rank 0, rank 1, this process): {launches}")
+
+
 # ---------------------------------------------------------------- main --
 
 def kernel_row(name, source, replaces, launches, r):
@@ -7287,6 +7748,10 @@ def main():
     torch.cuda.empty_cache()
     pp_launches = phase27(card)
     lap("phase27")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase28(card)
+    lap("phase28")
 
     ms, plain_ms, library_ms, bound_ms, bound_by, _ = t = time_pack(main_pack)
     say_pack_time("bf16 pools at the phase-3 shapes", t, card)

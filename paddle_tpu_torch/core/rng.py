@@ -20,6 +20,10 @@ reference's bit for bit:
   key that is split on every draw; inside ``rng_scope(key)`` the n-th
   draw is ``fold_in(key, n)``, so the masks of a train step are a pure
   function of its step key and the draw order.
+- Inside :func:`row_block` (a mesh train step over data ranks) every
+  draw is this rank's rows of the draw over the global batch: its
+  counters start at the rank's index times its own draw's numel (one
+  broadcast over the batch, inside :func:`batch_broadcast`, at 0).
 
 - ``RNGSequenceTracker`` (``get_rng_state_tracker``): named seeds whose
   ``rng_state(name)`` scope draws from that stream (eager) or from
@@ -123,10 +127,12 @@ def _device(device):
 
 def _block_words(key, shape, device):
     """The two uint32 output words (int64 tensors of ``shape``) of the
-    threefry blocks over the row-major counters of ``shape``."""
+    threefry blocks over the row-major counters of ``shape``, from the
+    enclosing :func:`row_block`'s first counter (else 0)."""
     k0, k1 = _words(key)
     n = int(np.prod(shape, dtype=np.int64))
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+    offset = _row_offset(shape, n)
+    idx = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     hi, lo = idx >> 32, idx & _M32
     b0, b1 = _threefry2x32(k0, k1, hi, lo)
     return b0.reshape(shape), b1.reshape(shape)
@@ -196,6 +202,7 @@ class _ScopeState(threading.local):
         self.key = None        # the scope's key, read at the first draw
         self.counter = 0
         self.refusal = None
+        self.rows = None       # (index, row count) of a row_block
 
 
 _scope = _ScopeState()
@@ -247,6 +254,50 @@ def fold_scope(data: int):
     if _scope.key is None or _scope.refusal is not None:
         return contextlib.nullcontext()
     return _scoped(fold_in(_scope.key, data), None)
+
+
+@contextlib.contextmanager
+def row_block(index: int, rows: int):
+    """Every draw inside is rank ``index``'s block of rows of the draw the
+    reference makes over the global batch: the global draw's dim 0 holds
+    the ranks' blocks of ``rows`` rows in order, and the counters are
+    row-major, so this rank's block is the one counter range
+    ``[index * n, (index + 1) * n)``, ``n`` the numel of its own draw.  A
+    draw whose dim 0 is not the rank's ``rows`` batch rows raises; one
+    broadcast over the batch is made inside :func:`batch_broadcast`."""
+    prev = _scope.rows
+    _scope.rows = (int(index), int(rows))
+    try:
+        yield
+    finally:
+        _scope.rows = prev
+
+
+@contextlib.contextmanager
+def batch_broadcast():
+    """Draws inside are broadcast over the batch (a dropout mask of dim 0
+    size 1 along an axis it does not draw over): every rank draws the
+    reference's whole draw, from counter 0, inside a :func:`row_block`
+    too."""
+    prev = _scope.rows
+    _scope.rows = None
+    try:
+        yield
+    finally:
+        _scope.rows = prev
+
+
+def _row_offset(shape, n: int) -> int:
+    if _scope.rows is None:
+        return 0
+    index, rows = _scope.rows
+    if not shape or shape[0] != rows:
+        raise NotImplementedError(
+            f"a draw of shape {tuple(shape)} inside a train step over the "
+            f"batch ranks: its dim 0 is not this rank's {rows} batch rows, "
+            f"so its block of the global draw is not known to be one "
+            f"counter range (ROADMAP A7b item 8)")
+    return index * n
 
 
 def refuse_draws(reason: str):
@@ -330,6 +381,6 @@ def set_rng_state(state) -> None:
 
 __all__ = ["make_key", "fold_in", "split", "random_bits", "uniform",
            "bernoulli", "seed", "get_stream", "add_stream", "rng_scope",
-           "fold_scope", "refuse_draws", "next_key", "in_rng_scope",
-           "RNGSequenceTracker", "get_rng_state_tracker", "get_rng_state",
-           "set_rng_state"]
+           "fold_scope", "row_block", "batch_broadcast", "refuse_draws",
+           "next_key", "in_rng_scope", "RNGSequenceTracker",
+           "get_rng_state_tracker", "get_rng_state", "set_rng_state"]

@@ -44,12 +44,25 @@ class MetaParallelBase(nn.Module):
 
 
 class DataParallel(MetaParallelBase):
-    """Reference: fluid/dygraph/parallel.py:397."""
+    """Reference: fluid/dygraph/parallel.py:397.  Each rank runs the
+    forward on its own rows; in training mode a batch norm inside takes
+    its statistics over every batch rank's rows
+    (``nn.functional.batch_stats_over`` the hybrid group's batch group),
+    as the reference's one controller does over the whole batch it is
+    given (``ROADMAP.md`` §C, data-parallel training)."""
 
     def __init__(self, layers, strategy=None, comm_buffer_size=25,
                  last_comm_buffer_size=1, find_unused_parameters=False,
                  group=None):
         super().__init__(layers, None, strategy)
+
+    def forward(self, *inputs, **kwargs):
+        if self._hcg is None or not self.training:
+            return self._layers(*inputs, **kwargs)
+        from ....nn.functional.norm import batch_stats_over
+        group, _ = self._hcg.mesh.batch_group()
+        with batch_stats_over(group):
+            return self._layers(*inputs, **kwargs)
 
     def scale_loss(self, loss):
         return loss

@@ -28,7 +28,8 @@ In both, each micro-batch's loss is weighted by 1/M (its share of the
 tokens: M equal micro-batches), the returned loss is the global mean on
 every rank, the gradients are then averaged over the data × sharding × sep
 ranks, and each rank updates its own parameters and slots.  Over more
-than one rank a random draw raises (``spmd._MESH_DRAWS``).
+than one rank a random draw and a batch norm in training mode raise
+(``spmd._MESH_DRAWS``, ``_PIPE_BATCH_STATS``: ROADMAP A7b item 8).
 """
 
 from __future__ import annotations
@@ -162,13 +163,21 @@ def _pipe_step(optimizer, mesh, layer, state0, n_chunks, leaves_of, fwd,
 
     def refusing(state, key, lr, x, labels):
         from ..core import rng
-        with rng.refuse_draws(_MESH_DRAWS):
+        from ..nn.functional.norm import batch_stats_over
+        with rng.refuse_draws(_MESH_DRAWS), \
+                batch_stats_over(None, _PIPE_BATCH_STATS):
             return step(state, key, lr, x, labels)
 
     out = step if mesh.size <= 1 else refusing
     if layout is not None:
         out.layout = layout
     return out
+
+
+_PIPE_BATCH_STATS = ("a batch norm in training mode inside a pipeline train "
+                     "step over more than one rank waits for ROADMAP A7b "
+                     "item 8: a stage sees one rank's micro-batch, not the "
+                     "global batch the reference normalises")
 
 
 def _sum_over(grads, names, group):

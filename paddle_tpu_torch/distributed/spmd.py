@@ -10,8 +10,12 @@ collectives.  Here every rank runs the step on its own process
 
 - every rank is given the GLOBAL batch and takes its rows (dim 0 split
   over the data × sharding ranks in rank order: ``mesh.batch_group()``,
-  the ranks at this rank's model and sep coordinates) and, over sep
-  ranks, its chunk of the sequence (``seq_dim`` split in sep order);
+  the ranks at this rank's model and sep coordinates; under gradient
+  accumulation its share of each micro-batch of the global rows) and,
+  over sep ranks, its chunk of the sequence (``seq_dim`` split in sep
+  order); its forward takes a batch norm's statistics over the batch
+  group's rows and draws its rows' block of each global draw, so what it
+  computes is the reference's GSPMD forward on those rows;
 - a parameter the model axis splits is held and computed on as this
   rank's block (the model's own collectives run the tensor parallelism;
   its gradient is the block's), and everything below treats the block
@@ -50,12 +54,14 @@ has no counterpart here (``ROADMAP.md`` §C).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict
 
 import torch
 from torch import nn
 
 from ..core import rng
+from ..nn.functional.norm import batch_stats_over
 from .sharding_rules import (PartitionSpec, _entry_axes, _flatten_with_path,
                              _map_with_path, batch_spec,
                              build_param_specs, build_state_shardings,
@@ -139,7 +145,7 @@ def _grad(obj, tensors):
 
 
 def _loss_and_grads(loss_of, leaves, trainable, holder, batch, scale=None,
-                    accumulate_steps: int = 1, buffers=None):
+                    accumulate_steps: int = 1, buffers=None, local=None):
     """(detached loss, {name: grad}) of ``loss_of(leaves, *batch)``.  With
     ``holder`` (the layer) whose own parameters are not ``leaves``, or
     with ``buffers`` (named tensors to stand in for the layer's buffers),
@@ -148,30 +154,44 @@ def _loss_and_grads(loss_of, leaves, trainable, holder, batch, scale=None,
     updates a buffer in place updates the given one).  ``scale``
     multiplies the loss before the backward (ZeRO's loss scale).  With
     ``accumulate_steps`` the rows split into that many micro-batches,
-    whose losses and gradients are averaged."""
-    own = holder is None or (buffers is None and all(
-        leaves.get(n) is p for n, p in holder.layer.named_parameters()))
-    swapped = {**leaves, **(buffers or {})}
+    whose losses and gradients are averaged; each reads clones of
+    ``buffers`` and the given ones stay as they are (the reference's
+    accumulating step returns its buffers unchanged).  ``local(b)``: this
+    rank's rows of a (micro-)batch ``b`` of the global rows and the
+    context its forward and backward run in (the mesh step's); None
+    takes ``b`` as it is."""
+    own = holder is None or all(
+        leaves.get(n) is p for n, p in holder.layer.named_parameters())
+    if buffers is not None and holder is not None and all(
+            buffers.get(n) is b for n, b in holder.layer.named_buffers()):
+        buffers = None          # the layer's own: nothing to swap in
 
     def run(*b):
         loss = loss_of(leaves, *b)
         obj = loss if scale is None else loss * scale
         return loss.detach(), _grad(obj, [leaves[n] for n in trainable])
 
-    def call(b):
-        if own:
-            return run(*b)
-        return torch.func.functional_call(
-            holder, {f"layer.{n}": t for n, t in swapped.items()},
-            (lambda: run(*b),))
+    def call(b, bufs):
+        rows, ctx = local(b) if local is not None else (
+            b, contextlib.nullcontext())
+        with ctx:
+            if own and bufs is None:
+                return run(*rows)
+            return torch.func.functional_call(
+                holder, {f"layer.{n}": t
+                         for n, t in {**leaves, **(bufs or {})}.items()},
+                (lambda: run(*rows),))
 
     if accumulate_steps <= 1:
-        loss, g = call(batch)
+        loss, g = call(batch, buffers)
         return loss, dict(zip(trainable, g))
+    if holder is not None and buffers is None:
+        buffers = dict(holder.layer.named_buffers())
     loss, acc = None, None
     for m in range(accumulate_steps):
         with rng.fold_scope(m):      # the reference's fold_in(key, m)
-            lm, gm = call(_rows(batch, accumulate_steps, m))
+            lm, gm = call(_rows(batch, accumulate_steps, m),
+                          _clone_tree(buffers) if buffers else None)
         loss = lm if loss is None else loss + lm
         acc = list(gm) if acc is None else [a + b for a, b in zip(acc, gm)]
     return loss / accumulate_steps, {n: a / accumulate_steps
@@ -179,12 +199,16 @@ def _loss_and_grads(loss_of, leaves, trainable, holder, batch, scale=None,
 
 
 def _mean_all(grads: Dict[str, torch.Tensor], group, R: int):
-    """The gradients' mean over ``group``: one flat fp32 all-reduce."""
+    """The gradients' mean over ``group``: one flat fp32 all-reduce
+    (float64 where a gradient is float64, as the reference reduces it in
+    its own dtype under x64)."""
     from .collective import ReduceOp, all_reduce
     if R <= 1 or not grads:
         return grads
     names = sorted(grads)
-    flat = torch.cat([grads[n].reshape(-1).float() for n in names])
+    dt = torch.float64 if any(g.dtype == torch.float64
+                              for g in grads.values()) else torch.float32
+    flat = torch.cat([grads[n].reshape(-1).to(dt) for n in names])
     all_reduce(flat, ReduceOp.SUM, group)
     flat /= R
     out, off = {}, 0
@@ -266,19 +290,22 @@ def _mean_held(grads, mesh, G: int):
 
 
 def _rank_loss_and_grads(loss_of, params, p_specs, p_split, mesh, holder,
-                         trainable, rows, scale=None,
-                         accumulate_steps: int = 1):
-    """(loss, grads) of this rank's ``rows``: the parameters ``p_split``
-    names are all-gathered for the forward and the backward, and the
-    gathered copies die with the call (ZeRO-3)."""
+                         trainable, batch, scale=None,
+                         accumulate_steps: int = 1, buffers=None,
+                         local=None):
+    """(loss, grads) of this rank's rows of the global ``batch``
+    (``local``, ``_loss_and_grads``'): the parameters ``p_split`` names
+    are all-gathered for the forward and the backward, and the gathered
+    copies die with the call (ZeRO-3); ``buffers`` stand in for the
+    layer's."""
     full = {n: (gather_full(t, p_specs[n], mesh) if p_split[n] else t)
             for n, t in params.items()}
     leaves = {n: (t if (holder is not None and t.requires_grad
                         and not p_split[n]) else
                   t.detach().requires_grad_(n in trainable))
               for n, t in full.items()}
-    return _loss_and_grads(loss_of, leaves, trainable, holder, rows, scale,
-                           accumulate_steps)
+    return _loss_and_grads(loss_of, leaves, trainable, holder, batch, scale,
+                           accumulate_steps, buffers, local)
 
 
 def _found_inf(grads, group):
@@ -301,8 +328,12 @@ def _clone_tree(tree):
 
 
 def _global_loss(loss, group, R: int):
+    """The mean of the ranks' losses, in fp32 (float64 for a float64
+    loss, as the reference keeps it under x64)."""
     from .collective import ReduceOp, all_reduce
-    out = loss.detach().float().clone()
+    out = loss.detach().clone()
+    if out.dtype != torch.float64:
+        out = out.float()
     if R > 1:
         all_reduce(out, ReduceOp.SUM, group)
         out /= R
@@ -336,7 +367,7 @@ def _make_mesh_step(loss_of, params0, optimizer, mesh, layer, p_specs,
     group, bidx = mesh.batch_group()
     ggroup, _ = mesh.batch_group(GRAD_AXES)
     R, G = group.nranks, ggroup.nranks
-    S, sidx = mesh.shape.get("sep", 1), mesh.coord.get("sep", 0)
+    S = mesh.shape.get("sep", 1)
 
     def on(axis):
         return {n for n in params0 if mesh.shape.get(axis, 1) > 1 and any(
@@ -397,16 +428,17 @@ def _make_mesh_step(loss_of, params0, optimizer, mesh, layer, p_specs,
             "ZeRO layouts with an expert axis wait for ROADMAP A7b item 3 "
             "(ZeRO composed with expert parallelism)")
 
+    draw_refusal = _draw_refusal(mesh, expert_split)
+    local = _local_rows(mesh, draw_refusal, seq_dim)
+
     def step(state, lr, *batch):
         if not donate:
             state = _clone_tree(state)
         scale = state["scaler"]["scale"] if zero else None
-        rows = _rows(batch, R, bidx)
-        if seq_dim is not None:
-            rows = _rows(rows, S, sidx, dim=seq_dim)
         loss, grads = _rank_loss_and_grads(
             loss_of, state["params"], p_specs, p_split, mesh, holder,
-            trainable, rows, scale, accumulate_steps)
+            trainable, batch, scale, accumulate_steps, state.get("buffers"),
+            local)
         if zero:
             inv = torch.where(scale > 0, 1.0 / scale, torch.zeros_like(scale))
             grads = {n: g.float() * inv for n, g in grads.items()}
@@ -483,12 +515,14 @@ def _make_mesh_step(loss_of, params0, optimizer, mesh, layer, p_specs,
                 sc["found_inf"] = found_inf
         return state, _global_loss(loss, ggroup, G)
 
+    if _is_solo(mesh) or draw_refusal is None:
+        refusing = step
+    else:
+        def refusing(state, lr, *batch):
+            with rng.refuse_draws(draw_refusal):
+                return step(state, lr, *batch)
     if _is_solo(mesh):
-        return step, state0
-
-    def refusing(state, lr, *batch):
-        with rng.refuse_draws(_MESH_DRAWS):
-            return step(state, lr, *batch)
+        return refusing, state0
 
     if not zero:
         from .checkpoint import Layout
@@ -505,9 +539,58 @@ def _make_mesh_step(loss_of, params0, optimizer, mesh, layer, p_specs,
     return refusing, state0
 
 
-_MESH_DRAWS = ("a random draw (dropout) inside a train step over more than "
-               "one rank waits for ROADMAP A7b: a rank's mask of its rows "
-               "would not equal the reference's mask of the global batch")
+_MESH_DRAWS = ("a random draw (dropout) inside a train step over model, "
+               "sep, pipe or expert ranks waits for ROADMAP A7b item 8: a "
+               "rank's block of a column- or sequence-split mask is not one "
+               "counter range of the reference's global draw")
+
+_SEP_BATCH_STATS = ("a batch norm in training mode inside a train step whose "
+                    "rows the sep ranks split waits for ROADMAP A7b item 8")
+
+
+def _draw_refusal(mesh, expert_split=()):
+    """``_MESH_DRAWS`` where ``mesh`` has model, sep, pipe or expert
+    ranks (a step there must not draw), else None."""
+    return _MESH_DRAWS if expert_split or any(
+        mesh.shape.get(a, 1) > 1 for a in ("model", "sep", "pipe")) else None
+
+
+def _local_rows(mesh, draw_refusal, seq_dim=None):
+    """``local(b)`` of a step over ``mesh``: this rank's rows of a
+    (micro-)batch ``b`` of the global rows and the scope of their forward:
+    a batch norm's statistics over the batch ranks (refused where the sep
+    ranks split the rows too), a draw's block of the global draw at this
+    rank's rows (none where ``draw_refusal`` refuses the step's draws)."""
+    group, bidx = mesh.batch_group()
+    R = group.nranks
+    S, sidx = mesh.shape.get("sep", 1), mesh.coord.get("sep", 0)
+    seq_split = seq_dim is not None and S > 1
+
+    def local(b):
+        rows = _rows(b, R, bidx)
+        if seq_dim is not None:
+            rows = _rows(rows, S, sidx, dim=seq_dim)
+        ctx = contextlib.ExitStack()
+        ctx.enter_context(batch_stats_over(
+            group, _SEP_BATCH_STATS if seq_split else None))
+        n = _lead_rows(rows)
+        if R > 1 and draw_refusal is None and n:
+            ctx.enter_context(rng.row_block(bidx, n))
+        return rows, ctx
+    return local
+
+
+def _lead_rows(batch) -> int:
+    """The leading dim of the first tensor of ``batch`` (nested in lists,
+    tuples and dicts) with one: a rank's row count."""
+    for x in (batch.values() if isinstance(batch, dict) else batch):
+        if isinstance(x, torch.Tensor) and x.dim() > 0:
+            return x.shape[0]
+        if isinstance(x, (list, tuple, dict)):
+            n = _lead_rows(x)
+            if n:
+                return n
+    return 0
 
 
 # --------------------------------------------------------------------------
@@ -683,10 +766,17 @@ def make_spmd_train_step(layer, loss_fn, optimizer, hcg, zero_stage: int = 0,
     callable (PyTorch idiom; the reference functionalizes its Layer):
     ``step(state, key, lr, inputs, labels) -> (state, loss)`` with
     ``loss = loss_fn(layer(*inputs), *labels)`` the global mean.  Every
-    rank passes the global ``inputs``/``labels`` lists and takes its rows.
-    On one rank the forward runs under ``rng_scope(key)`` (a micro-batch
-    ``m`` of ``accumulate_steps`` under ``fold_in(key, m)``), as in the
-    reference; over more ranks a draw raises (ROADMAP A7b).  Returns
+    rank passes the global ``inputs``/``labels`` lists and takes its rows
+    (of micro-batch ``m`` of the global rows under ``accumulate_steps``).
+    The forward runs under ``rng_scope(key)`` (micro-batch ``m`` under
+    ``fold_in(key, m)``), as in the reference: over the data and sharding
+    ranks a draw is this rank's rows of the reference's draw over the
+    global batch (``core.rng.row_block``), and a batch norm's statistics
+    cover the global batch (``nn.functional.batch_stats_over``); over
+    model, sep, pipe or expert ranks a draw raises (ROADMAP A7b item 8).
+    The forward reads and advances ``state["buffers"]`` (clones of them
+    under ``donate=False``); under ``accumulate_steps`` > 1 they come back
+    as given, as the reference's do.  Returns
     ``(step, state0, state_specs)``: the state ``{"params", "opt",
     "buffers"}`` (``comm_e`` with a stateful ``grad_comm``) holds this
     rank's shards; ``state_specs`` is their

@@ -34,6 +34,7 @@ and are WARNED about with a byte count, as in the reference.
 
 from __future__ import annotations
 
+import contextlib
 import warnings
 from typing import Any, Callable, Dict, Optional
 
@@ -175,14 +176,19 @@ def make_zero_offload_train_step(loss_of: Callable, params0: Dict[str, Any],
     host memory (pinned when the parameters are on a card); each step
     reduces the gradients on the device, copies them host-ward, runs the
     update on the CPU, and copies the parameters back.  As in the
-    reference the host state is whole on every rank (not sharded).
+    reference the host state is whole on every rank (not sharded).  The
+    forward runs in the mesh step's scope (``spmd._local_rows``): batch
+    statistics over the batch ranks, a draw as the rank's rows of the
+    global draw.
     state = {params(dev), opt(host), master(host), scaler(host)};
     ``step.layout`` as ``make_zero_train_step``'s."""
     del master_weights  # always master-weighted: the host keeps THE fp32
     # copy of every parameter, so no step fetches parameters from device
     from ..telemetry import instrument_train_step
-    from .spmd import (_found_inf, _global_loss, _mean_all,
-                       _rank_loss_and_grads, _rows, _Thunk, _trainable)
+    from ..core import rng
+    from .spmd import (_draw_refusal, _found_inf, _global_loss,
+                       _local_rows, _mean_all, _rank_loss_and_grads, _Thunk,
+                       _trainable)
     mesh = _as_mesh(mesh)
     p_specs, _ = zero_state_specs(params0, mesh, layer, zero_stage)
     p_split = {n: spec_shards(p_specs[n], mesh) for n in params0}
@@ -206,15 +212,19 @@ def make_zero_offload_train_step(loss_of: Callable, params0: Dict[str, Any],
                    "good_steps": torch.zeros((), dtype=torch.int32),
                    "found_inf": torch.zeros((), dtype=torch.bool)},
     }
-    group, bidx = mesh.batch_group()
+    group, _ = mesh.batch_group()
     R = group.nranks
     trainable = _trainable(params0, layer)
     holder = _Thunk(layer) if layer is not None else None
+    draw_refusal = _draw_refusal(mesh)
+    local = _local_rows(mesh, draw_refusal)
 
     def step(state, lr, *batch):
-        loss, grads = _rank_loss_and_grads(
-            loss_of, state["params"], p_specs, p_split, mesh, holder,
-            trainable, _rows(batch, R, bidx))
+        with (rng.refuse_draws(draw_refusal) if draw_refusal
+              else contextlib.nullcontext()):
+            loss, grads = _rank_loss_and_grads(
+                loss_of, state["params"], p_specs, p_split, mesh, holder,
+                trainable, batch, local=local)
         grads = _mean_all({n: g.float() for n, g in grads.items()}, group, R)
         found_inf = _found_inf(grads, group)
         with torch.no_grad():

@@ -8,10 +8,16 @@ float64 input, 32-bit bits and a float32 compare for any other.  The
 reference draws at the width of its ``1.0 - p``, a Python float: float64
 with ``jax_enable_x64`` on, float32 with it off.  So a float64 mask is the
 reference's under x64 on, and any other the reference's under x64 off,
-where it trains.  Eval mode and ``p == 0`` draw nothing.
+where it trains.  Eval mode and ``p == 0`` draw nothing.  Inside a mesh
+train step over data ranks (``core.rng.row_block``) a rank draws its rows
+of the reference's mask over the global batch (the mask shape keeps dim
+0: ``dropout2d``/``3d`` too); a mask broadcast over the batch (``axis``
+without 0) is the reference's whole mask on every rank.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -28,12 +34,16 @@ def linear(x, weight, bias=None, name=None):
     return out
 
 
-def _keep(x, p, mask_shape):
+def _keep(x, p, mask_shape, over_batch=True):
     """The keep-mask of ``mask_shape`` with probability ``1 - p``, at the
-    input's width (module docstring), on the input's device."""
+    input's width (module docstring), on the input's device.
+    ``over_batch``: the mask's dim 0 is the batch's (else it is broadcast
+    over the batch, and every rank of a mesh step draws all of it)."""
     dt = torch.float64 if x.dtype == torch.float64 else torch.float32
-    return rng.bernoulli(rng.next_key(), 1.0 - p, mask_shape, dt,
-                         device=x.device)
+    with (contextlib.nullcontext() if over_batch
+          else rng.batch_broadcast()):
+        return rng.bernoulli(rng.next_key(), 1.0 - p, mask_shape, dt,
+                             device=x.device)
 
 
 def _scalar(v, x):
@@ -54,12 +64,12 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
             return x * _scalar(1.0 - p, x)
         return x
     if axis is None:
-        mask_shape = tuple(x.shape)
+        axes = list(range(x.dim()))
     else:
         axes = [axis] if isinstance(axis, int) else list(axis)
-        mask_shape = tuple(x.shape[i] if i in axes else 1
-                           for i in range(x.dim()))
-    keep = _keep(x, p, mask_shape)
+    mask_shape = tuple(x.shape[i] if i in axes else 1
+                       for i in range(x.dim()))
+    keep = _keep(x, p, mask_shape, 0 in axes)
     zero = _scalar(0.0, x)
     if mode == "upscale_in_train":
         return torch.where(keep, x / _scalar(1.0 - p, x), zero)

@@ -1,5 +1,6 @@
 """Convolution functionals (counterpart of
-``paddle_tpu/nn/functional/conv.py``: ``conv1d``/``conv2d``/``conv3d``).
+``paddle_tpu/nn/functional/conv.py``: ``conv1d``/``conv2d``/``conv3d``,
+their transposes, ``unfold`` and ``fold``).
 
 The reference lowers every conv to ``lax.conv_general_dilated``; here it
 is ``torch.nn.functional.conv{n}d`` (cuDNN on the card).  The weight is
@@ -15,6 +16,8 @@ import torch
 import torch.nn.functional as F
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
 
 
 def _tuplize(v, n):
@@ -138,4 +141,78 @@ def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
                  data_format, 3)
 
 
-__all__ = ["conv1d", "conv2d", "conv3d"]
+def _conv_transpose(x, weight, bias, stride, padding, output_padding,
+                    dilation, groups, data_format, n):
+    """The reference's transposed conv (an input dilated by the stride,
+    convolved with the flipped (in, out/groups, *k) weight over the pads
+    ``(K - 1 - lo, K - 1 - hi + output_padding)``, K the dilated kernel;
+    a string padding names those pads directly and takes no output
+    padding): torch's unpadded transpose, then each spatial dim cut to
+    ``[lo, (in - 1) * stride + K - hi + output_padding)`` (zeros past its
+    end, where no input reaches).  The reference reads no
+    ``output_size``, and neither does this."""
+    stride = _tuplize(stride, n)
+    dilation = _tuplize(dilation, n)
+    opad = _tuplize(output_padding, n)
+    pad = _padding(padding, n, data_format)
+    k = [(kk - 1) * d + 1 for kk, d in zip(weight.shape[2:], dilation)]
+    if isinstance(pad, str):
+        eff = ([((kk - 1) // 2, kk - 1 - (kk - 1) // 2) for kk in k]
+               if pad == "SAME" else [(kk - 1, kk - 1) for kk in k])
+        pad = [(kk - 1 - lo, kk - 1 - hi) for kk, (lo, hi) in zip(k, eff)]
+        opad = (0,) * n
+    a = channels_first(x, n, data_format)
+    out = _CONV_T[n](a, weight, None, stride, 0, 0, groups, dilation)
+    for i, ((lo, hi), op) in enumerate(zip(pad, opad)):
+        end = out.shape[2 + i] - hi + op
+        if end > out.shape[2 + i]:
+            extra = [0, 0] * n
+            extra[2 * (n - 1 - i) + 1] = end - out.shape[2 + i]
+            out = F.pad(out, extra)
+        out = out.narrow(2 + i, lo, end - lo)
+    if bias is not None:
+        out = out + bias.reshape((1, -1) + (1,) * n)
+    return channels_last(out, n, data_format)
+
+
+def conv1d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCL", name=None):
+    return _conv_transpose(x, weight, bias, stride, padding, output_padding,
+                           dilation, groups, data_format, 1)
+
+
+def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCHW", name=None):
+    return _conv_transpose(x, weight, bias, stride, padding, output_padding,
+                           dilation, groups, data_format, 2)
+
+
+def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCDHW", name=None):
+    return _conv_transpose(x, weight, bias, stride, padding, output_padding,
+                           dilation, groups, data_format, 3)
+
+
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
+    """im2col of an NCHW input: (N, C * kh * kw, L), channel-major."""
+    k, s, d = (_tuplize(v, 2) for v in (kernel_sizes, strides, dilations))
+    a = pad_spatial(x, _padding(paddings, 2, "NCHW"))
+    return F.unfold(a, k, d, 0, s)
+
+
+def fold(x, output_sizes, kernel_sizes, strides=1, paddings=0, dilations=1,
+         name=None):
+    """col2im, :func:`unfold`'s transpose: the (N, C * kh * kw, L) columns
+    summed into the padded (N, C, H, W) map, then the pads cut off."""
+    k, s, d = (_tuplize(v, 2) for v in (kernel_sizes, strides, dilations))
+    (t, b), (left, r) = _padding(paddings, 2, "NCHW")
+    oh, ow = _tuplize(output_sizes, 2)
+    out = F.fold(x, (oh + t + b, ow + left + r), k, d, 0, s)
+    return out[:, :, t:t + oh, left:left + ow]
+
+
+__all__ = ["conv1d", "conv2d", "conv3d", "conv1d_transpose",
+           "conv2d_transpose", "conv3d_transpose", "unfold", "fold"]

@@ -1,15 +1,17 @@
 """Pooling functionals (counterpart of
 ``paddle_tpu/nn/functional/pooling.py``): max and average pooling with
 paddle's padding forms, ``ceil_mode`` and ``exclusive``, and adaptive
-average pooling, in both data formats.
+average and max pooling, in both data formats.
 
 The reference reduces windows over explicitly padded inputs
 (``lax.reduce_window``); here the pads are resolved the same way
 (:func:`_resolve_pads`) and the window runs through torch's pooling.  A
 symmetric pad of at most half the window goes to torch's own ``padding``
 (no window is all pad then, so the result is the same); any other pad is
-applied first, with -inf for max and 0 for sums.  ``return_mask`` and
-adaptive max pooling wait (ROADMAP A8a).
+applied first, with -inf for max and 0 for sums.  ``return_mask`` gives
+each maximum's index within the flattened spatial dims of the unpadded
+input, the reference's contract (torch's own indices, mapped back from a
+padded input where the pad was applied first).
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from .conv import (_padding, _string_pads, _tuplize, channels_first,
 _MAX = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
 _ADAPTIVE_AVG = {1: F.adaptive_avg_pool1d, 2: F.adaptive_avg_pool2d,
                  3: F.adaptive_avg_pool3d}
+_ADAPTIVE_MAX = {1: F.adaptive_max_pool1d, 2: F.adaptive_max_pool2d,
+                 3: F.adaptive_max_pool3d}
 
 
 def _resolve_pads(sizes, k, s, pad, ceil_mode):
@@ -67,17 +71,35 @@ def _setup(x, kernel, stride, padding, n, data_format, ceil_mode):
     return a, k, s, pads
 
 
+def _unpadded_index(idx, sizes, pads):
+    """Flat indices into the padded spatial dims as indices into the
+    unpadded ones (``sizes``)."""
+    flat = torch.zeros_like(idx)
+    rest = idx
+    scale = 1
+    for size, (lo, hi) in reversed(list(zip(sizes, pads))):
+        full = size + lo + hi
+        flat = flat + (rest % full - lo) * scale
+        rest = rest // full
+        scale *= size
+    return flat
+
+
 def _max_pool(x, kernel, stride, padding, return_mask, ceil_mode,
               data_format, n):
-    if return_mask:
-        raise NotImplementedError("max pooling's return_mask waits for "
-                                  "ROADMAP A8a")
     a, k, s, pads = _setup(x, kernel, stride, padding, n, data_format,
                            ceil_mode)
     tp = _torch_pad(pads, k)
+    src = a
     if tp is None:
-        a, tp = pad_spatial(a, pads, value=-math.inf), 0
-    return channels_last(_MAX[n](a, k, s, tp), n, data_format)
+        src, tp = pad_spatial(a, pads, value=-math.inf), 0
+    if not return_mask:
+        return channels_last(_MAX[n](src, k, s, tp), n, data_format)
+    out, idx = _MAX[n](src, k, s, tp, return_indices=True)
+    if src is not a:
+        idx = _unpadded_index(idx, a.shape[2:], pads)
+    return (channels_last(out, n, data_format),
+            channels_last(idx, n, data_format))
 
 
 def _avg_pool(x, kernel, stride, padding, ceil_mode, exclusive, data_format,
@@ -157,6 +179,29 @@ def adaptive_avg_pool3d(x, output_size, data_format="NCDHW", name=None):
     return _adaptive_avg_pool(x, output_size, 3, data_format)
 
 
+def _adaptive_max_pool(x, output_size, n, return_mask):
+    """Channels-first only, as in the reference; with ``return_mask`` the
+    index of each bin's maximum within the input's flattened spatial
+    dims."""
+    outs = _tuplize(output_size, n)
+    return _ADAPTIVE_MAX[n](x, outs if n > 1 else outs[0],
+                            return_indices=return_mask)
+
+
+def adaptive_max_pool1d(x, output_size, return_mask=False, name=None):
+    return _adaptive_max_pool(x, output_size, 1, return_mask)
+
+
+def adaptive_max_pool2d(x, output_size, return_mask=False, name=None):
+    return _adaptive_max_pool(x, output_size, 2, return_mask)
+
+
+def adaptive_max_pool3d(x, output_size, return_mask=False, name=None):
+    return _adaptive_max_pool(x, output_size, 3, return_mask)
+
+
 __all__ = ["max_pool1d", "max_pool2d", "max_pool3d", "avg_pool1d",
            "avg_pool2d", "avg_pool3d", "adaptive_avg_pool1d",
-           "adaptive_avg_pool2d", "adaptive_avg_pool3d"]
+           "adaptive_avg_pool2d", "adaptive_avg_pool3d",
+           "adaptive_max_pool1d", "adaptive_max_pool2d",
+           "adaptive_max_pool3d"]

@@ -170,6 +170,83 @@ class Assign(Initializer):
             dtype=to_dtype(dtype)).reshape(tuple(int(s) for s in shape))
 
 
+class Orthogonal(Initializer):
+    """``gain`` times the Q of a QR of a standard-normal (max(r, c),
+    min(r, c)) fp32 draw, signed by R's diagonal (transposed when r < c),
+    reshaped to ``shape`` (r = shape[0], c = the rest)."""
+
+    def __init__(self, gain: float = 1.0):
+        self.gain = gain
+
+    def __call__(self, shape, dtype, generator=None):
+        shape = tuple(int(s) for s in shape)
+        rows, cols = shape[0], int(np.prod(shape[1:]))
+        flat = _empty((max(rows, cols), min(rows, cols)), torch.float32,
+                      generator).normal_(generator=generator)
+        q, r = torch.linalg.qr(flat)
+        q = q * torch.sign(torch.diagonal(r))
+        q = q.T if rows < cols else q
+        return (self.gain * q[:rows, :cols]).reshape(shape).to(
+            to_dtype(dtype))
+
+
+class Dirac(Initializer):
+    """A conv weight (out, in, *k) that passes channel i of each of
+    ``groups`` groups through: 1 at the kernel's centre, 0 elsewhere."""
+
+    def __init__(self, groups: int = 1):
+        self.groups = groups
+
+    def __call__(self, shape, dtype, generator=None):
+        shape = tuple(int(s) for s in shape)
+        out = np.zeros(shape, np.float32)
+        oc, ic = shape[0], shape[1]
+        centers = tuple(s // 2 for s in shape[2:])
+        for g in range(self.groups):
+            for i in range(min(oc // self.groups, ic)):
+                out[(g * (oc // self.groups) + i, i) + centers] = 1.0
+        return torch.as_tensor(out, dtype=to_dtype(dtype),
+                               device=None if generator is None
+                               else generator.device)
+
+
+class Bilinear(Initializer):
+    """The bilinear up-sampling kernel of a 4-D transposed-conv weight,
+    for every (out, in) channel pair, its factor taken from ``shape[3]``
+    for both axes, as the reference takes it."""
+
+    def __call__(self, shape, dtype, generator=None):
+        shape = tuple(int(s) for s in shape)
+        if len(shape) != 4:
+            raise ValueError(f"Bilinear expects a 4-D conv weight, got "
+                             f"{shape}")
+        f = int(np.ceil(shape[3] / 2.0))
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        og = np.ogrid[:shape[2], :shape[3]]
+        filt = (1 - abs(og[0] / f - c)) * (1 - abs(og[1] / f - c))
+        out = np.ascontiguousarray(np.broadcast_to(
+            filt.astype(np.float32), shape))
+        return torch.as_tensor(out, dtype=to_dtype(dtype),
+                               device=None if generator is None
+                               else generator.device)
+
+
+def calculate_gain(nonlinearity: str, param=None) -> float:
+    """The recommended gain of ``nonlinearity`` (the reference's table)."""
+    if nonlinearity in ("sigmoid", "linear", "conv1d", "conv2d", "conv3d"):
+        return 1.0
+    if nonlinearity == "tanh":
+        return 5.0 / 3
+    if nonlinearity == "relu":
+        return math.sqrt(2.0)
+    if nonlinearity == "leaky_relu":
+        a = 0.01 if param is None else param
+        return math.sqrt(2.0 / (1 + a ** 2))
+    if nonlinearity == "selu":
+        return 3.0 / 4
+    raise ValueError(f"unknown nonlinearity {nonlinearity}")
+
+
 _global_initializer = None
 
 
@@ -187,4 +264,5 @@ def get_global_initializer():
 
 __all__ = ["Initializer", "Constant", "Normal", "TruncatedNormal", "Uniform",
            "XavierNormal", "XavierUniform", "KaimingNormal", "KaimingUniform",
-           "Assign", "set_global_initializer", "get_global_initializer"]
+           "Assign", "Orthogonal", "Dirac", "Bilinear", "calculate_gain",
+           "set_global_initializer", "get_global_initializer"]

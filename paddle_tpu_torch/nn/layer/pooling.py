@@ -1,6 +1,6 @@
 """Pooling layers (counterpart of ``paddle_tpu/nn/layer/pooling.py``):
-max, average and adaptive average pooling.  Adaptive max pooling waits
-(ROADMAP A8a)."""
+max, average, adaptive average and adaptive max pooling, and
+``MaxUnPool2D``."""
 
 from __future__ import annotations
 
@@ -85,6 +85,41 @@ class AdaptiveAvgPool3D(_Pool):
                          data_format=data_format)
 
 
+class AdaptiveMaxPool1D(_Pool):
+    def __init__(self, output_size, return_mask=False, name=None):
+        super().__init__("adaptive_max_pool1d", output_size=output_size,
+                         return_mask=return_mask)
+
+
+class AdaptiveMaxPool2D(_Pool):
+    def __init__(self, output_size, return_mask=False, name=None):
+        super().__init__("adaptive_max_pool2d", output_size=output_size,
+                         return_mask=return_mask)
+
+
+class AdaptiveMaxPool3D(_Pool):
+    def __init__(self, output_size, return_mask=False, name=None):
+        super().__init__("adaptive_max_pool3d", output_size=output_size,
+                         return_mask=return_mask)
+
+
+class MaxUnPool2D(Layer):
+    """The inverse of ``MaxPool2D(return_mask=True)``:
+    ``forward(x, indices)``."""
+
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 data_format="NCHW", output_size=None, name=None):
+        super().__init__()
+        self._args = (kernel_size, stride, padding, data_format, output_size)
+
+    def forward(self, x, indices):
+        from ..functional.extras import max_unpool2d
+        k, s, p, df, osz = self._args
+        return max_unpool2d(x, indices, k, stride=s, padding=p,
+                            data_format=df, output_size=osz)
+
+
 __all__ = ["MaxPool1D", "MaxPool2D", "MaxPool3D", "AvgPool1D", "AvgPool2D",
            "AvgPool3D", "AdaptiveAvgPool1D", "AdaptiveAvgPool2D",
-           "AdaptiveAvgPool3D"]
+           "AdaptiveAvgPool3D", "AdaptiveMaxPool1D", "AdaptiveMaxPool2D",
+           "AdaptiveMaxPool3D", "MaxUnPool2D"]

@@ -39,6 +39,17 @@ TINY = dict(vocab_size=512, hidden_size=128, num_hidden_layers=2,
 B, L = 2, 128
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Run the port's CPU ops on one thread, then restore the count: the
+    suite runs six workers on the cores, and a worker spreading small
+    ops over every core spends its time in OpenMP's barriers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def fused_ln():
     def set_on(on):

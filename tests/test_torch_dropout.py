@@ -14,7 +14,8 @@
 - the train steps' draws: the step key's masks in ``make_train_step`` and
   the one-rank ``make_spmd_train_step`` (a micro-batch under
   ``fold_in(key, m)``), the latter also against the reference's on a
-  one-device mesh (fp32), and a step over two ranks refusing to draw.
+  one-device mesh (fp32), a step over two model ranks refusing to draw,
+  and a data rank's draw as its rows of the global mask.
 """
 
 import gc
@@ -344,14 +345,36 @@ def test_one_rank_spmd_step_matches_the_reference(accumulate_steps):
 
 
 def test_a_step_over_two_ranks_refuses_to_draw():
-    """A rank's mask of its rows would not be the reference's mask of the
-    global batch: the step raises at the draw, before any collective."""
+    """Over two model ranks a rank's block of a column-split mask is not
+    one counter range of the global draw: the step raises at the draw,
+    before any collective, naming ROADMAP A7b item 8."""
     net = _net()
-    hcg = types.SimpleNamespace(mesh=ProcessMesh(["data"], [2]))
+    hcg = types.SimpleNamespace(mesh=ProcessMesh(["model"], [2]))
     step, state, _ = spmd.make_spmd_train_step(net, _mse, SGD(1.0), hcg)
     x, y = torch.zeros(4, 6, dtype=torch.float64), torch.zeros(
         4, 3, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A7b item 8"):
         step(state, KEYS[0], 1.0, [x], [y])
     assert not rng.in_rng_scope()
     assert F.dropout(torch.ones(3), 0.5).shape == (3,)   # refusal undone
+
+
+@pytest.mark.parametrize("ranks", [2, 4, 8])
+@pytest.mark.parametrize("case", ["axis_none", "axis_int", "axis_list",
+                                  "dropout2d", "alpha"])
+def test_a_data_rank_draws_its_rows_of_the_global_mask(case, ranks):
+    """Over the data ranks a step draws each rank's rows of the
+    reference's mask of the global batch: the counters are row-major, so
+    rank r's block is the range ``[r n, (r + 1) n)`` (``rng.row_block``,
+    which the mesh step enters around each rank's forward); 8 ranks hold
+    one row each.  ``axis_int``'s mask is broadcast over the batch: every
+    rank draws the whole of it."""
+    fn, shape = CASES[case]
+    shape = (8,) + shape[1:]
+    x = np.random.RandomState(5).randn(*shape).astype(np.float32)
+    want = _reference(case, x, KEYS[1], x64=False)
+    n = shape[0] // ranks
+    for r in range(ranks):
+        with rng.rng_scope(KEYS[1]), rng.row_block(r, n):
+            got = fn(F, torch.from_numpy(x[r * n:(r + 1) * n]))
+        _eq(got, want[r * n:(r + 1) * n])

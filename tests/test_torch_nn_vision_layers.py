@@ -244,8 +244,16 @@ def test_adaptive_avg_pool1d_and_3d():
 
 
 def test_return_mask_waits():
-    with pytest.raises(NotImplementedError, match="A8a"):
-        F.max_pool2d(torch.zeros(1, 1, 4, 4), 2, return_mask=True)
+    """Max pooling's ``return_mask`` no longer waits: the values and each
+    maximum's index within the flattened unpadded input, as the
+    reference's (``test_torch_pool_conv_extras.py`` has the other
+    forms)."""
+    x = _rand((1, 2, 5, 4), 7)
+    want, wmask = JF.max_pool2d(_j(x), 2, 2, 1, return_mask=True)
+    got, mask = F.max_pool2d(_t(x), 2, 2, 1, return_mask=True)
+    _close(got, want)
+    np.testing.assert_array_equal(mask.numpy(),
+                                  np.asarray(wmask._data).astype(np.int64))
 
 
 # ------------------------------------------------------------ batch norm --

@@ -14,6 +14,7 @@ import gc
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as paddle
 from paddle_tpu.models.gpt import GPTConfig as JConfig
@@ -41,6 +42,17 @@ TINY = dict(vocab_size=256, hidden_size=64, num_layers=2,
 ENGINES = {"paged": (JPaged, TPaged), "ragged": (JRagged, TRagged)}
 LONG = list(range(3, 17))                     # 14 tokens -> bucket 16, pad 2
 KINDS = pytest.mark.parametrize("kind", ["paged", "ragged"])
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Run the port's CPU ops on one thread, then restore the count: the
+    suite runs six workers on the cores, and a worker spreading small
+    ops over every core spends its time in OpenMP's barriers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _pair(**extra):

@@ -16,6 +16,7 @@ import warnings
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as paddle
 from paddle_tpu.models.gpt import GPTConfig as JConfig
@@ -38,6 +39,7 @@ def _release_jax_arrays():
     forensics), and these would crowd out its own."""
     yield
     _models.cache_clear()
+    _solo_of.cache_clear()
     gc.collect()
 
 TINY = dict(vocab_size=256, hidden_size=64, num_layers=2,
@@ -45,6 +47,17 @@ TINY = dict(vocab_size=256, hidden_size=64, num_layers=2,
             initializer_range=0.3, compute_dtype="float32")
 REQS = [([5, 17, 3], 10), ([40, 2], 6), ([61], 8), ([9, 9, 1], 7)]
 LONG = list(range(3, 17))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Run the port's CPU ops on one thread, then restore the count: the
+    suite runs six workers on the cores, and a worker spreading small
+    ops over every core spends its time in OpenMP's barriers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)
@@ -67,11 +80,18 @@ def _models(kv=None):
 
 
 def _solo(p, n, kv=None):
+    return list(_solo_of(tuple(p), n, kv))
+
+
+@functools.lru_cache(maxsize=None)
+def _solo_of(p, n, kv):
+    """Solo greedy ``generate()`` of prompt ``p`` for ``n`` tokens, JAX's
+    and the port's equal; each prompt and length runs once a module."""
     jm, params, _, _, tm, _ = _models(kv)
-    want = np.asarray(jm.generate(params, jnp.asarray([p], jnp.int32),
+    want = np.asarray(jm.generate(params, jnp.asarray([list(p)], jnp.int32),
                                   n))[0].tolist()
-    assert tm.generate([p], n)[0].tolist() == want
-    return want
+    assert tm.generate([list(p)], n)[0].tolist() == want
+    return tuple(want)
 
 
 def _drive(eng, reqs, steps_after=()):

@@ -37,6 +37,17 @@ B, HW, STEPS, LR = 4, 32, 3, 0.1
 
 
 @pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Run the port's CPU ops on one thread, then restore the count: the
+    suite runs six workers on the cores, and a worker spreading small
+    ops over every core spends its time in OpenMP's barriers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
 def _release_jax_arrays():
     """Drop this module's JAX arrays when it ends: a later module in the
     same process ranks the live JAX arrays (the reference's memory
