@@ -401,6 +401,32 @@ Phases (any failure exits non-zero before the result lines):
    rank holds against one rank's; B2-B4 at a micro-batch's shapes
    against their plain versions.
 
+28. data-parallel vision on gloo ranks sharing the card (resnet50,
+   SyncBatchNorm, the vision families' dropout rows) and the
+   normalization layers card vs CPU.
+29. the eager surface a user's own model touches: (a) an encoder at
+   ``bench_bert_base``'s widths (vocab 30528, d 768, 12 heads, ff 3072,
+   12 post-LN ``nn.TransformerEncoderLayer``s with gelu, token and
+   position ``nn.Embedding``s, an ``nn.Linear`` head, bf16) trained
+   eagerly with ``nn.CrossEntropyLoss``, ``backward()`` and the eager
+   AdamW (multi_precision) at B 16, L 512 with a (B, 1, 1, L) bool
+   key-padding mask (odd rows drop their last 64 keys), dropout and
+   attention dropout 0.1: 2 warm and 5 timed steps on one batch, every
+   loss finite and the fifth timed below the first, exactly 12 launches
+   of each flash kernel a step; ``paddle_tpu_torch.grad`` of the loss in
+   the token embedding against its ``.grad`` from a separate backward
+   (bf16 tier, ``.grad`` untouched); (b) the same layers at 2 layers and
+   full width (B 2, L 128, both dropouts, one seed) on the card against
+   the CPU: the loss and every parameter's gradient within 1e-4 (fp32,
+   TF32 off) and 2e-2 (bf16) of the tensor's scale; (c) every function
+   and layer of the slice (activations, losses, common functionals and
+   layers, the tensor namespace, ``MultiHeadAttention`` and the
+   ``Transformer*`` layers, the flash rows on the kernels) card vs CPU in
+   fp32 within 1e-5 of each tensor's scale, integer, bool and index
+   outputs exactly; (d) ``save``
+   of (a)'s trained ``state_dict`` and ``load`` into a fresh model on the
+   card: logits bit-equal, bytes and seconds printed.
+
 Then each kernel is timed at its main path's shapes beside its plain
 version, one PyTorch call computing the same function (``library_ms``,
 timed here and never called by the port: ``scaled_dot_product_attention``
@@ -428,7 +454,8 @@ kernels in (a)'s 36 steps and, on both ranks, in (c)'s GPT and BERT
 arms; the fused LN kernels in (c)'s BERT arm) and phase 22's (the three
 flash kernels in every step of 22a and of 22b's two ranks) and phases
 25's, 26's and 27's (the three flash kernels on every rank of their
-arms, the fused LN kernels on 26's BERT ranks).  The last two lines are the
+arms, the fused LN kernels on 26's BERT ranks) and phase 29's (the three
+flash kernels in (a)'s 5 timed eager steps).  The last two lines are the
 kernels JSON and the device JSON.
 
 Without CUDA, or run without the rest of the repository, it exits
@@ -7551,6 +7578,486 @@ def phase28(card):
 
 # ---------------------------------------------------------------- main --
 
+# ------------------------------------------------------------ phase 29 --
+
+# bench_bert_base's widths (bench.py:309-312) through the eager layers
+P29 = dict(vocab=30528, d=768, heads=12, ff=3072, layers=12, positions=512)
+P29_B, P29_L, P29_PAD = 16, 512, 64
+P29_CMP_B, P29_CMP_L, P29_CMP_LAYERS = 2, 128, 2
+P29_FP32_TOL, P29_BF16_TOL = 1e-4, 2e-2     # (b): the whole model
+P29_TABLE_TOL = 1e-5                        # (c): one function, fp32
+
+
+def p29_model(layers, dropout, device):
+    """A user's own encoder on the eager surface: token and position
+    ``Embedding``s, ``layers`` post-LN ``TransformerEncoderLayer``s (gelu)
+    and a ``Linear`` head over the vocabulary, built on ``device`` from
+    torch's generator."""
+    from paddle_tpu_torch import nn
+
+    class EagerEncoder(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.tok = nn.Embedding(P29["vocab"], P29["d"])
+            self.pos = nn.Embedding(P29["positions"], P29["d"])
+            self.encoder = nn.TransformerEncoder(nn.TransformerEncoderLayer(
+                P29["d"], P29["heads"], P29["ff"], dropout=dropout,
+                activation="gelu", attn_dropout=dropout), layers)
+            self.head = nn.Linear(P29["d"], P29["vocab"])
+
+        def forward(self, ids, mask):
+            pos = torch.arange(ids.shape[1], device=ids.device)
+            return self.head(self.encoder(self.tok(ids) + self.pos(pos),
+                                          mask))
+
+    with nn.building(device):
+        return EagerEncoder()
+
+
+def p29_batch(B, L, device, seed=29):
+    """Token ids, labels and a (B, 1, 1, L) bool key-padding mask whose
+    odd rows drop their last ``P29_PAD`` keys."""
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, P29["vocab"], (B, L), generator=g)
+    labels = torch.randint(0, P29["vocab"], (B, L), generator=g)
+    keep = torch.ones(B, 1, 1, L, dtype=torch.bool)
+    keep[1::2, ..., L - P29_PAD:] = False
+    return ids.to(device), labels.to(device), keep.to(device)
+
+
+def p29_loss(model, batch):
+    from paddle_tpu_torch import nn
+    ids, labels, keep = batch
+    logits = model(ids, keep)
+    return nn.CrossEntropyLoss()(logits.float().reshape(-1, P29["vocab"]),
+                                 labels.reshape(-1))
+
+
+def p29_worst(got, want):
+    """max |got - want| over max(|want|), the tensor's own scale."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)
+            ).item()
+
+
+def phase29_train(card):
+    """(a) the full-width eager train, (a') ``grad`` against ``.grad``
+    and (d) ``save``/``load``: returns the flash launches of the 5 timed
+    steps and the trained model."""
+    import tempfile
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.core import rng
+    from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.manual_seed(29)
+    model = p29_model(P29["layers"], 0.1, "cuda").bfloat16()
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = p29_batch(P29_B, P29_L, "cuda")
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                multi_precision=True)
+    rng.seed(29)
+    losses = []
+
+    def step():
+        loss = p29_loss(model, batch)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.detach())
+
+    flash = (A.flash_fwd_cuda, A.flash_bwd_dq_cuda, A.flash_bwd_dkv_cuda)
+    for _ in range(2):
+        step()
+    for k in flash:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = tuple(k.launches for k in flash)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    vals = [v.item() for v in losses]
+    timed = vals[2:]
+    Lyr = P29["layers"]
+    check(all(np.isfinite(vals)), f"phase29 (a): non-finite loss in {vals}")
+    check(timed[4] < timed[0], f"phase29 (a): the fifth timed loss is not "
+                               f"below the first: {timed}")
+    check(launches == (Lyr * 5,) * 3,
+          f"phase29 (a): flash launches fwd/dq/dkv {launches} != {Lyr} x 5 "
+          f"steps each")
+    # what the step's 36 residual and activation dropouts cost alone
+    from paddle_tpu_torch.nn import functional as F
+    shapes = [(P29_B, P29_L, P29["d"])] * 2 + [(P29_B, P29_L, P29["ff"])]
+    xs = [torch.zeros(sh, dtype=torch.bfloat16, device="cuda")
+          for sh in shapes]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(Lyr):
+        for x in xs:
+            F.dropout(x, 0.1)
+    torch.cuda.synchronize()
+    drop_ms = 1e3 * (time.perf_counter() - t0)
+    n_drawn = Lyr * sum(x.numel() for x in xs)
+    del xs
+    say(f"phase29 (a) eager bench_bert_base-width encoder (vocab "
+        f"{P29['vocab']}, d {P29['d']}, {P29['heads']} heads, ff "
+        f"{P29['ff']}, {Lyr} post-LN TransformerEncoderLayers, "
+        f"{n_params} parameters, bf16, B {P29_B}, L {P29_L}, key-padding "
+        f"mask, dropout 0.1 and attention dropout 0.1, CrossEntropyLoss, "
+        f"eager AdamW multi_precision): losses "
+        f"{[round(v, 4) for v in vals]} (2 warm, 5 timed); "
+        f"{1e3 * wall / 5:.3f} ms/step, {P29_B * P29_L * 5 / wall:.1f} "
+        f"tokens/s, peak memory {peak:.3f} GiB, flash launches fwd/dq/dkv "
+        f"a step {[n // 5 for n in launches]}; the step's {3 * Lyr} "
+        f"residual and activation dropouts ({n_drawn} threefry draws) "
+        f"{drop_ms:.3f} ms alone; {card}")
+
+    # (a') grad of the loss in the token embedding vs its .grad
+    w = model.tok.weight
+    rng.seed(290)
+    p29_loss(model, batch).backward()
+    ref = w.grad.clone()
+    ptr = w.grad.data_ptr()
+    rng.seed(290)
+    (got,) = P.grad(p29_loss(model, batch), w)
+    check(w.grad.data_ptr() == ptr and torch.equal(w.grad, ref),
+          "phase29 (a'): paddle_tpu_torch.grad touched .grad")
+    err = p29_worst(got, ref)
+    check(err <= P29_BF16_TOL, f"phase29 (a'): grad vs .grad differ by "
+                               f"{err:.3e}")
+    say(f"phase29 (a') paddle_tpu_torch.grad of the loss in the token "
+        f"embedding vs its .grad from a separate backward: largest |diff| "
+        f"/ max|.grad| {err:.3e} (tol {P29_BF16_TOL:g}), .grad untouched")
+    opt.clear_grad()
+
+    # (d) save, then load into a fresh model on the card: logits bit-equal
+    model.eval()
+    tmp = tempfile.mkdtemp(prefix="phase29_")
+    path = str(Path(tmp) / "eager.pdparams")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    P.save(model.state_dict(), path)
+    t_save = time.perf_counter() - t0
+    size = Path(path).stat().st_size
+    fresh = p29_model(P29["layers"], 0.1, "cuda").bfloat16().eval()
+    t0 = time.perf_counter()
+    fresh.load_state_dict(P.load(path, device="cuda"))
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    Path(path).unlink()
+    Path(tmp).rmdir()
+    with torch.no_grad():
+        same = torch.equal(model(*batch[::2]), fresh(*batch[::2]))
+    check(same, "phase29 (d): the loaded model's logits differ")
+    say(f"phase29 (d) save of (a)'s trained state_dict: {size} bytes in "
+        f"{t_save:.3f} s, load into a fresh model on the card "
+        f"{t_load:.3f} s; logits bit-equal")
+    del model, fresh, opt
+    return launches
+
+
+def phase29_cmp(card):
+    """(b) the same layers at 2 layers and full width on the card against
+    the CPU (plain versions) from one set of weights and one seed, fp32
+    (TF32 off) then bf16: the loss and every parameter's gradient."""
+    import copy
+
+    from paddle_tpu_torch.core import rng
+
+    torch.manual_seed(291)
+    cpu = p29_model(P29_CMP_LAYERS, 0.1, "cpu")
+    for dt, tol in ((torch.float32, P29_FP32_TOL),
+                    (torch.bfloat16, P29_BF16_TOL)):
+        res = []
+        for dev in ("cpu", "cuda"):
+            m = copy.deepcopy(cpu).to(dev, dt)
+            rng.seed(291)
+            loss = p29_loss(m, p29_batch(P29_CMP_B, P29_CMP_L, dev, 291))
+            loss.backward()
+            res.append((loss.detach(), {n: p.grad for n, p in
+                                        m.named_parameters()}))
+        (lc, gc_), (lg, gg) = res
+        loss_err = abs(lg.item() - lc.item()) / abs(lc.item())
+        # a key bias's gradient is zero in exact arithmetic (a row's
+        # softmax ignores a shift of all its scores): both devices give
+        # roundoff, held against the largest gradient instead
+        big = max(g.abs().max().item() for g in gc_.values())
+        kb = [n for n in gc_ if n.endswith("k_proj.bias")]
+        kb_err = max((gg[n].float().cpu() - gc_[n].float()).abs().max()
+                     .item() for n in kb) / big
+        worst = sorted(((p29_worst(gg[n], gc_[n]), n) for n in gc_
+                        if n not in kb), reverse=True)[:3]
+        say(f"phase29 (b) card vs CPU, {P29_CMP_LAYERS} layers at full width, "
+            f"B {P29_CMP_B}, L {P29_CMP_L}, {str(dt)[6:]}, both dropouts on, "
+            f"one seed: loss {lg.item():.6f} vs {lc.item():.6f} (rel "
+            f"{loss_err:.3e}), largest gradient |diff| / max|cpu| "
+            + ", ".join(f"{w:.3e} ({n})" for w, n in worst)
+            + f"; the key biases (zero in exact arithmetic) |diff| / the "
+            f"largest gradient {kb_err:.3e}; tol {tol:g}; {card}")
+        check(loss_err <= tol and worst[0][0] <= tol and kb_err <= tol,
+              f"phase29 (b) {dt}: card vs CPU differ: loss {loss_err}, "
+              f"{worst[0]}, key biases {kb_err}")
+
+
+def p29_table():
+    """(c)'s rows: (name, call(P, F, *tensors), numpy inputs, layer
+    constructor over ``nn`` or None)."""
+    r = np.random.RandomState(29)
+
+    def f(*shape, scale=1.0):
+        return (r.standard_normal(shape) * scale).astype(np.float32)
+
+    def u(*shape, lo=0.05, hi=0.95):
+        return r.uniform(lo, hi, shape).astype(np.float32)
+
+    def i(*shape, hi=5):
+        return r.randint(0, hi, shape).astype(np.int64)
+
+    x, m, m2 = f(4, 6, 5, scale=2.0), f(3, 4), f(3, 4)
+    img, nhwc = f(2, 4, 6, 8), f(2, 6, 8, 4)
+    p2, y2, lbl = f(8, 5), f(8, 5), i(8)
+    logp, pm = np.log(u(8, 5)), np.sign(f(8)).astype(np.float32)
+    ties = np.array([[3., 1., 3., 2., 1., 3.], [0., 0., 5., 5., 2., 0.]],
+                    np.float32)
+    ctc = [f(12, 3, 6), np.array([[1, 2, 2, 0], [3, 3, 3, 4], [5, 1, 0, 0]]),
+           np.array([12, 10, 9]), np.array([3, 4, 2])]
+    acts = ["relu", "relu6", "elu", "selu", "celu", "gelu", "sigmoid",
+            "hardsigmoid", "hardswish", "hardtanh", "hardshrink",
+            "softshrink", "tanhshrink", "leaky_relu", "rrelu", "log_sigmoid",
+            "silu", "swish", "mish", "softplus", "softsign", "tanh",
+            "thresholded_relu", "softmax", "log_softmax"]
+    rows = [(f"F.{a}", lambda P, F, t, a=a: getattr(F, a)(t), [x], None)
+            for a in acts]
+    rows += [
+        ("F.gelu tanh", lambda P, F, t: F.gelu(t, True), [x], None),
+        ("F.glu", lambda P, F, t: F.glu(t, 1), [x], None),
+        ("F.maxout", lambda P, F, t: F.maxout(t, 2), [x], None),
+        ("F.prelu", lambda P, F, t, w: F.prelu(t, w), [x, u(6)], None),
+        ("losses a", lambda P, F, a, b: [
+            F.mse_loss(a, b), F.l1_loss(a, b, "sum"),
+            F.smooth_l1_loss(a, b, delta=0.5),
+            F.cosine_embedding_loss(a, b, P.sign(a[:, 0])),
+            F.triplet_margin_loss(a, b, a * 0.5, swap=True),
+            F.square_error_cost(a, b), F.npair_loss(a, b, P.arange(8) % 3),
+            F.binary_cross_entropy_with_logits(a, P.sigmoid(b)),
+            F.sigmoid_focal_loss(a, P.round(P.sigmoid(b))),
+            F.softmax_with_cross_entropy(a, P.argmax(b, 1, True)),
+            F.kl_div(F.log_softmax(a, 1), F.softmax(b, 1), "batchmean")],
+         [p2, y2], None),
+        ("losses b", lambda P, F, lp, y, q: [
+            F.nll_loss(lp, y), F.nll_loss(lp, y, reduction="none"),
+            F.binary_cross_entropy(q, q * 0.5), F.log_loss(q[:, :1], q[:, 1:2]),
+            F.margin_ranking_loss(lp[:, 0], lp[:, 1], P.sign(lp[:, 2] + 1)),
+            F.hinge_embedding_loss(lp[:, 0], P.sign(lp[:, 2] + 1)),
+            F.dice_loss(q[None], y[None, :, None] % 5)],
+         [logp, lbl, u(8, 5)], None),
+        ("F.ctc_loss", lambda P, F, a, b, c, d: [
+            F.ctc_loss(a, b, c, d), F.ctc_loss(a, b, c, d, 0, "none")], ctc,
+         None),
+        ("common", lambda P, F, im, th, g: [
+            F.interpolate(im, [9, 13], mode="bilinear"),
+            F.interpolate(im, [3, 5], mode="bicubic"),
+            F.interpolate(im, [9, 13], mode="bilinear", align_corners=True),
+            F.interpolate(im, scale_factor=2), F.pixel_shuffle(im, 2),
+            F.pixel_unshuffle(im, 2), F.channel_shuffle(im, 2),
+            F.pad(im, [1, 2, 2, 1], "reflect"), F.pad(im, [2, 1, 0, 3]),
+            F.affine_grid(th, [2, 3, 5, 7]), F.grid_sample(im, g),
+            F.grid_sample(im, g, mode="nearest"), F.unfold(im, [2, 3]),
+            F.temporal_shift(im, 2), F.diag_embed(im[0, 0], 1),
+            F.zeropad2d(im, [1, 0, 2, 1])],
+         [img, f(2, 2, 3, scale=0.5), u(2, 5, 7, 2, lo=-1.2, hi=1.2)], None),
+        ("common nhwc", lambda P, F, t: [
+            F.interpolate(t, scale_factor=1.5, mode="bilinear",
+                          data_format="NHWC"),
+            F.pixel_shuffle(t, 2, "NHWC"),
+            F.pad(t, [2, 1, 3, 0], "replicate", data_format="NHWC")],
+         [nhwc], None),
+        ("embedding etc", lambda P, F, ids, w, a, b: [
+            F.embedding(ids, w, 2), F.one_hot(ids, 7),
+            F.label_smooth(F.one_hot(ids, 7), epsilon=0.2),
+            F.cosine_similarity(a, b), F.sequence_mask(ids[0], 7),
+            F.bilinear(a[:, :3], b, w[:2, :3, None].expand(2, 3, 5))],
+         [i(3, 5, hi=7), f(7, 4), p2, y2], None),
+        ("tensor math", lambda P, F, a, b: [
+            P.exp(a), P.log(P.abs(a) + 1), P.sqrt(P.abs(a)), P.erf(a),
+            P.erfinv(P.clip(a, -0.9, 0.9) * 0.9), P.lgamma(P.abs(a) + 1),
+            P.digamma(P.abs(a) + 1), P.atan2(a, b), P.logaddexp(a, b),
+            P.hypot(a, b), P.pow(P.abs(a), b), P.fmax(a, b),
+            P.remainder(a, b), P.floor_divide(a, b), P.scale(a, 2.0, 0.5),
+            P.sum(a, [0, 1], True), P.mean(a, -1), P.prod(a, 1),
+            P.logsumexp(a, 1), P.amax(a, 0), P.nanmean(a),
+            P.cumsum(a, 1), P.cumprod(a), P.diff(a), P.trace(a),
+            P.matmul(a, b, transpose_y=True), P.dist(a, b, 1),
+            P.einsum("ij,kj->ik", a, b), P.lerp(a, b, 0.3),
+            P.take(a, P.to_tensor([[0, 11], [5, 13]]), mode="wrap")],
+         [m, m2], None),
+        ("tensor order", lambda P, F, a, t: [
+            P.argmax(a, 1), P.argsort(t), P.argsort(t, descending=True),
+            *P.topk(t, 3), *P.topk(t, 4, largest=False), *P.kthvalue(t, 3),
+            *P.mode(t), *P.cummax(t, 1), P.sort(t, 1, True),
+            P.searchsorted(P.sort(a.reshape([-1])), a),
+            P.median(a, 1), P.quantile(a, [0.25, 0.75], 1), P.var(a, 0),
+            P.std(a), P.nanmedian(a), *P.unique(t, True, True, True),
+            P.nonzero(a > 0), P.masked_select(a, a > 0)],
+         [m, ties], None),
+        ("tensor layout", lambda P, F, a: [
+            P.gather(a, P.to_tensor([2, 0])), P.gather_nd(
+                a, P.to_tensor([[0, 1], [2, 3]])),
+            P.scatter(a, P.to_tensor([2, 0]), a[:2] * 2),
+            P.scatter_nd_add(a, P.to_tensor([[0, 1], [2, 2]]), a[0, :2]),
+            P.put_along_axis(a, P.to_tensor([[0], [3], [2]]), 2.0, 1, "add"),
+            P.index_add(a, P.to_tensor([0, 2]), 0, a[:2]),
+            P.index_put(a, (P.to_tensor([0, 2]), P.to_tensor([1, 3])),
+                        P.to_tensor(5.0)),
+            P.repeat_interleave(a, 2, 1), P.roll(a, [1, -1], [0, 1]),
+            P.flip(a, [0, 1]), P.rot90(a), P.tile(a, [2, 1]),
+            P.strided_slice(a, [1], [3], [0], [-2]), *P.split(a, [1, -1], 1),
+            P.stack([a, a], 1), P.unsqueeze(a, [0, 3]),
+            P.pad(a, [1, 0, 0, 2], "replicate"), P.masked_fill(a, a > 0, 0.),
+            P.tensordot(a, a, [[1], [1]]), P.where(a > 0, a, -a),
+            P.as_real(P.as_complex(P.reshape(a, [3, 2, 2]))),
+            P.zeros([2, 3]), P.arange(1, 7, 2), P.linspace(0, 1, 5),
+            P.eye(2, 4), P.full([2], 3), P.diag(a[0], 1)]
+            + [getattr(P, n)(a > 0, a < 0.5) for n in (
+                "logical_and", "logical_or", "logical_xor", "equal")],
+         [m], None),
+    ]
+    layers = [
+        ("nn.PReLU", lambda nn: nn.PReLU(6, 0.1), [x]),
+        ("nn.GELU", lambda nn: nn.GELU(True), [x]),
+        ("nn.Maxout", lambda nn: nn.Maxout(3), [x]),
+        ("nn.Embedding", lambda nn: nn.Embedding(7, 4, padding_idx=1),
+         [i(3, 5, hi=7)]),
+        ("nn.Bilinear", lambda nn: nn.Bilinear(5, 5, 2), [p2, y2]),
+        ("nn.Upsample", lambda nn: nn.UpsamplingBilinear2D([7, 9]), [img]),
+        ("nn.Pad2D", lambda nn: nn.Pad2D([1, 2, 2, 1], "circular"), [img]),
+        ("nn.PairwiseDistance", lambda nn: nn.PairwiseDistance(3.0),
+         [p2, y2]),
+        ("nn.Fold", lambda nn: nn.Fold([4, 5], [2, 2]), [f(2, 8, 12)]),
+        ("nn.Unflatten", lambda nn: nn.Unflatten(1, [2, 3]), [x]),
+        ("nn.CrossEntropyLoss", lambda nn: nn.CrossEntropyLoss(), [p2, lbl]),
+        ("nn.CTCLoss", lambda nn: nn.CTCLoss(), ctc),
+        ("nn.MultiHeadAttention L 128 (flash)",
+         lambda nn: nn.MultiHeadAttention(128, 2, dropout=0.1),
+         [f(2, 128, 128)]),
+        ("nn.MultiHeadAttention L 96 need_weights",
+         lambda nn: nn.MultiHeadAttention(128, 2, dropout=0.1,
+                                          need_weights=True),
+         [f(2, 96, 128)]),
+        ("nn.TransformerEncoder L 128 (flash)",
+         lambda nn: nn.TransformerEncoder(nn.TransformerEncoderLayer(
+             128, 2, 256, 0.1, "gelu"), 2), [f(2, 128, 128)]),
+        ("nn.Transformer L 128/96 (flash encoder)",
+         lambda nn: nn.Transformer(128, 2, 1, 1, 256, 0.1),
+         [f(2, 128, 128), f(2, 96, 128)]),
+    ]
+    rows += [(n, None, ins, ctor) for n, ctor, ins in layers]
+    return rows
+
+
+def p29_outputs(out):
+    if isinstance(out, (list, tuple)):
+        return [v for o in out for v in p29_outputs(o)]
+    return [out]
+
+
+def p29_run(call, ctor, layer, arrays, dev):
+    """One device's run of a (c) row: every output, then the gradients of
+    ``sum(out * g)`` over the first output's float inputs and
+    parameters."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.core import rng
+    from paddle_tpu_torch.nn import functional as F
+
+    ts = [torch.from_numpy(a.copy()).to(dev) for a in arrays]
+    for t in ts:
+        if t.is_floating_point():
+            t.requires_grad_()
+    rng.seed(29)
+    with nn.building(dev):
+        out = layer(*ts) if ctor is not None else call(P, F, *ts)
+    outs = p29_outputs(out)
+    grads = []
+    first = outs[0]
+    if first.is_floating_point() and first.requires_grad:
+        g = torch.from_numpy(np.random.RandomState(7).standard_normal(
+            tuple(first.shape)).astype(np.float32)).to(dev, first.dtype)
+        (first * g).sum().backward()
+        grads = [t.grad for t in ts if t.grad is not None] + (
+            [p.grad for p in layer.parameters()] if ctor is not None else [])
+    return [o.detach().cpu() for o in outs], [g.cpu() for g in grads]
+
+
+def phase29_table(card):
+    """(c) every function and layer of this slice, card against CPU from
+    one set of inputs and weights: outputs (integer, bool and index ones
+    exactly) and gradients."""
+    import copy
+
+    from paddle_tpu_torch import nn
+
+    worst, exact = {}, 0
+    for name, call, arrays, ctor in p29_table():
+        layer = {}
+        if ctor is not None:
+            torch.manual_seed(29)
+            with nn.building("cpu"):
+                layer["cpu"] = ctor(nn)
+            layer["cuda"] = copy.deepcopy(layer["cpu"]).to("cuda")
+        (oc, gc_), (og, gg) = (p29_run(call, ctor, layer.get(d), arrays, d)
+                               for d in ("cpu", "cuda"))
+        check(len(oc) == len(og) and len(gc_) == len(gg),
+              f"phase29 (c) {name}: output counts differ")
+        w_o = w_g = 0.0
+        for a, b in zip(og, oc):
+            check(a.dtype == b.dtype and a.shape == b.shape,
+                  f"phase29 (c) {name}: {a.dtype} {tuple(a.shape)} vs "
+                  f"{b.dtype} {tuple(b.shape)}")
+            if not (b.is_floating_point() or b.is_complex()):
+                check(torch.equal(a, b), f"phase29 (c) {name}: an integer "
+                                         f"or bool output differs")
+                exact += 1
+            elif b.numel():
+                w_o = max(w_o, ((a - b).abs().max()
+                                / b.abs().max().clamp_min(1.0)).item())
+        for a, b in zip(gg, gc_):
+            w_g = max(w_g, ((a - b).abs().max()
+                            / b.abs().max().clamp_min(1.0)).item())
+        worst[name] = (w_o, w_g)
+        check(w_o <= P29_TABLE_TOL and w_g <= P29_TABLE_TOL,
+              f"phase29 (c) {name}: card vs CPU differ by {w_o:.3e} "
+              f"(outputs), {w_g:.3e} (gradients)")
+    say(f"phase29 (c) {len(worst)} rows of the slice's functions and layers "
+        f"on the card vs the CPU in fp32 ({exact} integer, bool or index "
+        f"outputs bit-equal), largest |cuda - cpu| / max(1, max|cpu|) "
+        f"(outputs, gradients): "
+        + ", ".join(f"{n} {o:.1e}/{g:.1e}" for n, (o, g) in worst.items())
+        + f" (tol {P29_TABLE_TOL:g}); {card}")
+
+
+def phase29(card):
+    """The eager surface a user's own model touches: (a) a full-width
+    eager train through ``nn.Embedding``/``nn.TransformerEncoderLayer``/
+    ``nn.Linear``/``nn.CrossEntropyLoss`` and the eager AdamW, its
+    attention on the flash kernels, (a') ``grad``, (b) the same layers
+    card vs CPU at 2 layers, (c) every function and layer of the slice
+    card vs CPU, (d) ``save``/``load``.  Returns (a)'s flash launches."""
+    t0 = time.perf_counter()
+    launches = phase29_train(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase29_cmp(card)
+    phase29_table(card)
+    say(f"phase29 took {time.perf_counter() - t0:.1f} s on {card}")
+    return launches
+
+
 def kernel_row(name, source, replaces, launches, r):
     """One entry of the kernels JSON from a timing dict."""
     return {"name": name, "route": "cuda", "source": source,
@@ -7752,6 +8259,10 @@ def main():
     torch.cuda.empty_cache()
     phase28(card)
     lap("phase28")
+    gc.collect()
+    torch.cuda.empty_cache()
+    eager_launches = phase29(card)
+    lap("phase29")
 
     ms, plain_ms, library_ms, bound_ms, bound_by, _ = t = time_pack(main_pack)
     say_pack_time("bf16 pools at the phase-3 shapes", t, card)
@@ -7812,7 +8323,8 @@ def main():
         f"parallelism: flash fwd/dq/dkv {tp_launches}; phase 26's expert "
         f"and model axes: flash fwd/dq/dkv {ep_launches[:3]}, fused LN "
         f"fwd/bwd {ep_launches[3:]}; phase 27's pipeline: flash "
-        f"fwd/dq/dkv {pp_launches}")
+        f"fwd/dq/dkv {pp_launches}; phase 29's eager encoder: flash "
+        f"fwd/dq/dkv {eager_launches}")
     say(card)                        # the nvidia-smi name,power.limit line
     pack = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
@@ -7821,11 +8333,11 @@ def main():
                        launches + gen_launches[0] + tel_launches[0]
                        + moe_launches[0] + fleet_launches[0], pack)]
     flash_launches = tuple(
-        a + b + c + d + e + f + g + h for a, b, c, d, e, f, g, h in zip(
+        sum(parts) for parts in zip(
             (flash_launches[0] + gen_launches[2] + fleet_launches[1],
              *flash_launches[1:]), tel_launches[2], moe_launches[1:4],
             dp_launches[:3], ckpt_launches, tp_launches, ep_launches[:3],
-            pp_launches))
+            pp_launches, eager_launches))
     ln_launches = tuple(a + b + c for a, b, c in zip(
         ln_launches, dp_launches[3:], ep_launches[3:]))
     rows += [kernel_row(name, FLASH_SOURCE, FLASH_REPLACES[name], n, r)

@@ -144,26 +144,72 @@ reference drew its masks through XLA's threefry, not a Pallas kernel):
   draw their masks from the step key
 - ``vision.models``: AlexNet, VGG, SqueezeNet, MobileNet V1/V2,
   GoogLeNet, InceptionV3, DenseNet, ShuffleNetV2
+
+and the eager surface a user's own model touches (the reference's
+dygraph API over plain ``torch.Tensor``s; no methods are patched on):
+
+- ``core.dtype`` (the dtype names, ``convert_dtype``, the default
+  dtype), ``core.device`` (places, ``set_device``, device queries)
+- ``tensor`` (``creation``, ``math``, ``logic``, ``manipulation``,
+  ``search``, ``stat``, ``einsum``), at the top level too, with ``cast``,
+  ``shape``, ``rank``, ``unbind`` and the ``reverse``/``bool`` aliases
+- ``nn.functional`` (the activations, losses and common functionals;
+  ``scaled_dot_product_attention`` over ``ops.attention``'s
+  ``masked_attention``, the flash kernels for no mask or a key-padding
+  mask), ``nn`` (the activation, loss and common layers,
+  ``MultiHeadAttention`` and the ``Transformer*`` layers,
+  ``params_from_numpy``)
+- ``framework.io`` and the top level: ``save``/``load`` in the
+  reference's pickle format (bf16 both ways), ``grad``, ``to_tensor``,
+  ``seed``, ``create_parameter``, the places and the mode switches
 """
 
+import builtins as _builtins
+
+import numpy as np
 import torch
 
-from .tensor.manipulation import (  # noqa: F401
-    concat, flatten, reshape, transpose)
+from . import tensor as tensor_api  # noqa: F401
+from .core.device import (  # noqa: F401
+    device_count, get_device, is_compiled_with_cuda, is_compiled_with_tpu,
+    set_device, synchronize)
+from .core.dtype import (  # noqa: F401
+    bfloat16, bool_, complex64, complex128, float16, float32, float64,
+    get_default_dtype, int8, int16, int32, int64, set_default_dtype, uint8)
+from .core.flags import get_flags, set_flags  # noqa: F401
+from .core.rng import get_rng_state, set_rng_state  # noqa: F401
+from .tensor import *  # noqa: F401,F403
+from .tensor import (  # noqa: F401
+    cast, is_tensor, rank, set_printoptions, shape, unbind)
+
+bool = bool_  # noqa: A001
+reverse = flip  # noqa: F405 - the fluid-era alias
+dtype = torch.dtype
+Tensor = torch.Tensor
+Parameter = torch.nn.Parameter
+no_grad = torch.no_grad
+enable_grad = torch.enable_grad
+set_grad_enabled = torch.set_grad_enabled
+is_grad_enabled = torch.is_grad_enabled
 
 # Submodules imported on first attribute access, as the reference's
 # package does for its fleet modules.
 _LAZY = ("serving", "telemetry", "telemetry_slo", "faults", "gateway",
          "autoscaler", "ops_server", "telemetry_fleet", "simulation",
-         "train_resilience")
-
-
+         "train_resilience", "nn", "optimizer", "distributed", "jit", "ops",
+         "models", "vision", "framework", "profiler", "regularizer")
 def __getattr__(name):
+    import importlib
     if name in _LAZY:
-        import importlib
         mod = importlib.import_module(f".{name}", __name__)
         globals()[name] = mod
         return mod
+    if name == "VarBase":                 # the legacy dygraph tensor name
+        return torch.Tensor
+    if name == "DataParallel":
+        obj = importlib.import_module(".distributed", __name__).DataParallel
+        globals()[name] = obj
+        return obj
     raise AttributeError(f"module 'paddle_tpu_torch' has no attribute "
                          f"{name!r}")
 
@@ -181,3 +227,191 @@ def resolve_device(device=None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def seed(value):
+    """``paddle.seed``: reseed ``core.rng``'s streams (the dropout masks)
+    and torch's generators (the initializers' draws)."""
+    from .core import rng
+    rng.seed(int(value))
+    torch.manual_seed(int(value))
+
+
+def to_tensor(data, dtype=None, place=None, stop_gradient=True):
+    """A new tensor of ``data`` (a tensor is copied) on ``place`` (a
+    ``CPUPlace()``/``CUDAPlace(i)``, a device or its name; default the
+    ``nn.building`` scope's, else ``cuda``).
+    Python floats take the default dtype, an ndarray keeps its own;
+    ``stop_gradient=False`` makes it require a gradient."""
+    from .core.dtype import convert_dtype
+    from .tensor.creation import _device
+    dev = _device(place.torch_device() if hasattr(place, "torch_device")
+                  else place)
+    dt = convert_dtype(dtype)
+    if isinstance(data, torch.Tensor):
+        out = data.detach().to(dev, dt, copy=True)
+    else:
+        arr = np.array(data)
+        if dt is None and not isinstance(data, np.ndarray) and \
+                arr.dtype == np.float64:
+            dt = get_default_dtype()      # Python floats: the default
+        out = torch.as_tensor(arr, dtype=dt, device=dev)
+    return out.requires_grad_(not stop_gradient)
+
+
+def grad(outputs, inputs, grad_outputs=None, retain_graph=None,
+         create_graph=False, only_inputs=True, allow_unused=False,
+         no_grad_vars=None):
+    """``paddle.grad``: the gradients of ``outputs`` with respect to
+    ``inputs``, leaving every ``.grad`` untouched.  The graph is kept
+    (``retain_graph`` None means True, as the reference's eager engine
+    keeps it).  An input that gets no gradient raises unless
+    ``allow_unused``, which gives None for it."""
+    outputs = list(outputs) if isinstance(outputs, (list, tuple)) \
+        else [outputs]
+    single = not isinstance(inputs, (list, tuple))
+    inputs = [inputs] if single else list(inputs)
+    if grad_outputs is not None and not isinstance(grad_outputs,
+                                                   (list, tuple)):
+        grad_outputs = [grad_outputs]
+    grads = torch.autograd.grad(
+        outputs, inputs, grad_outputs,
+        retain_graph=True if retain_graph is None else retain_graph,
+        create_graph=create_graph, allow_unused=True)
+    if not allow_unused and _builtins.any(g is None for g in grads):
+        raise RuntimeError("one of the inputs received no gradient; "
+                           "pass allow_unused=True to permit this")
+    return list(grads)
+
+
+def save(obj, path, protocol=4, **configs):
+    """``paddle.save`` (``framework.io``)."""
+    from .framework import io as _io
+    return _io.save(obj, path, protocol=protocol, **configs)
+
+
+def load(path, **configs):
+    """``paddle.load`` (``framework.io``): ``device=`` places tensors."""
+    from .framework import io as _io
+    return _io.load(path, **configs)
+
+
+def summary(net, input_size=None, dtypes=None, input=None):
+    raise NotImplementedError("summary needs hapi, which waits for ROADMAP "
+                              "A8b-2")
+
+
+def flops(net, input_size, custom_ops=None, print_detail=False):
+    raise NotImplementedError("flops needs hapi, which waits for ROADMAP "
+                              "A8b-2")
+
+
+def enable_static():
+    raise NotImplementedError("static graphs wait for ROADMAP A8c")
+
+
+def disable_static():
+    """Eager mode is the only mode: nothing to do."""
+
+
+def in_dynamic_mode():
+    return True
+
+
+def in_dygraph_mode():
+    """Legacy alias of :func:`in_dynamic_mode`."""
+    return in_dynamic_mode()
+
+
+enable_dygraph = disable_static
+disable_dygraph = enable_static
+
+
+# ------------------------------------------------------------------ places
+def CPUPlace():
+    from .core.device import Place
+    return Place("cpu")
+
+
+def CUDAPlace(dev_id: int = 0):
+    from .core.device import Place
+    return Place(f"gpu:{dev_id}")
+
+
+def CUDAPinnedPlace():
+    """Page-locked host memory: a host place."""
+    from .core.device import Place
+    return Place("cpu")
+
+
+def TPUPlace(dev_id: int = 0):
+    raise RuntimeError("paddle_tpu_torch runs on CUDA devices; use "
+                       "CUDAPlace() or CPUPlace()")
+
+
+def NPUPlace(dev_id: int = 0):
+    raise RuntimeError("paddle_tpu_torch is not compiled with NPU support")
+
+
+def XPUPlace(dev_id: int = 0):
+    raise RuntimeError("paddle_tpu_torch is not compiled with XPU support")
+
+
+# ------------------------------------------------- legacy/top-level aliases
+def get_cudnn_version():
+    return torch.backends.cudnn.version() \
+        if torch.backends.cudnn.is_available() else None
+
+
+def is_compiled_with_xpu():
+    return False
+
+
+def is_compiled_with_rocm():
+    return torch.version.hip is not None
+
+
+def is_compiled_with_npu():
+    return False
+
+
+def get_cuda_rng_state():
+    """The state of every card's torch generator ([] without a card)."""
+    return torch.cuda.get_rng_state_all() if torch.cuda.is_available() \
+        else []
+
+
+def set_cuda_rng_state(state_list):
+    if state_list:
+        torch.cuda.set_rng_state_all(state_list)
+
+
+def disable_signal_handler():
+    """The reference unhooks its C++ signal handlers; none are installed
+    here."""
+
+
+def monkey_patch_math_varbase():
+    """The port patches no tensor methods (ROADMAP §C): a no-op."""
+
+
+def monkey_patch_variable():
+    """See monkey_patch_math_varbase."""
+
+
+def tolist(x):
+    return x.tolist() if hasattr(x, "tolist") else list(x)
+
+
+def crop_tensor(x, shape=None, offsets=None, name=None):
+    from .tensor import crop
+    return crop(x, shape=shape, offsets=offsets)
+
+
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
+                     default_initializer=None):
+    """A parameter drawn as a layer's ``create_parameter`` draws it, on
+    the ``nn.building`` scope's device (else ``cuda``)."""
+    from .nn.layer.base import Layer
+    return Layer().create_parameter(shape, attr, dtype, is_bias,
+                                    default_initializer)

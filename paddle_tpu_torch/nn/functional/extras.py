@@ -1,6 +1,8 @@
 """Functionals of ``paddle_tpu/nn/functional/extras.py`` that the port
-has: ``max_unpool2d``, the inverse of ``max_pool2d(return_mask=True)``;
-the rest of that file waits for ROADMAP A8b-1."""
+has: ``max_unpool2d``, the inverse of ``max_pool2d(return_mask=True)``,
+``zeropad2d`` and the in-place ``elu_``/``tanh_``; the rest of that file
+(``hsigmoid_loss``, ``margin_cross_entropy``, ``class_center_sample``,
+``gather_tree``) waits for ROADMAP A8b-1's second slice."""
 
 from __future__ import annotations
 
@@ -34,4 +36,20 @@ def max_unpool2d(x, indices, kernel_size, stride=None, padding=0,
     return flat.scatter(2, ids, x.reshape(n, c, h * w)).reshape(n, c, ho, wo)
 
 
-__all__ = ["max_unpool2d"]
+def zeropad2d(x, padding, data_format="NCHW", name=None):
+    """Zero-pad H and W; ``padding`` = [left, right, top, bottom]."""
+    l, r, t, b = padding
+    if data_format == "NCHW":
+        return torch.nn.functional.pad(x, (l, r, t, b))
+    return torch.nn.functional.pad(x, (0, 0, l, r, t, b))
+
+
+def elu_(x, alpha=1.0, name=None):
+    return torch.nn.functional.elu_(x, alpha)
+
+
+def tanh_(x, name=None):
+    return torch.tanh_(x)
+
+
+__all__ = ["max_unpool2d", "zeropad2d", "elu_", "tanh_"]

@@ -31,13 +31,10 @@ def _fan(shape):
 
 
 def to_dtype(dtype) -> torch.dtype:
-    """A torch dtype from a torch dtype or a name (``"float32"``)."""
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    dt = getattr(torch, str(dtype), None)
-    if not isinstance(dt, torch.dtype):
-        raise ValueError(f"unknown dtype {dtype!r}")
-    return dt
+    """A torch dtype from a torch dtype or a name (``"float32"``): the
+    table of ``core.dtype``."""
+    from ...core.dtype import convert_dtype
+    return convert_dtype(dtype)
 
 
 def _empty(shape, dtype, generator):

@@ -16,6 +16,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 
+import numpy as np
 import torch
 
 from ..initializer import (Constant, Initializer, XavierUniform,
@@ -86,4 +87,31 @@ class Layer(torch.nn.Module):
             data, requires_grad=bool(getattr(attr, "trainable", True)))
 
 
-__all__ = ["Layer", "build_device", "building"]
+def _load(kind, named, arrays):
+    if set(named) != set(arrays):
+        raise ValueError(f"{kind} names differ: missing "
+                         f"{sorted(set(named) - set(arrays))}, unexpected "
+                         f"{sorted(set(arrays) - set(named))}")
+    for n, t in named.items():
+        arr = np.asarray(arrays[n])
+        if arr.shape != tuple(t.shape):
+            raise ValueError(f"{kind} {n}: shape {arr.shape} != "
+                             f"{tuple(t.shape)}")
+        t.copy_(torch.from_numpy(np.array(arr)))
+
+
+def params_from_numpy(model, params, buffers=None):
+    """Copy the reference's numpy parameters (and, given ``buffers``, its
+    running statistics) into ``model`` by name, with no mapping and no
+    transpose: ``params, buffers = functionalize(m)[1:]`` of a
+    ``paddle_tpu`` model (or its ``state_dict()``), as numpy.  Each value
+    is cast to the model tensor's dtype; a missing, extra or mis-shaped
+    name raises.  Returns ``model``."""
+    with torch.no_grad():
+        _load("parameter", dict(model.named_parameters()), params)
+        if buffers is not None:
+            _load("buffer", dict(model.named_buffers()), buffers)
+    return model
+
+
+__all__ = ["Layer", "build_device", "building", "params_from_numpy"]

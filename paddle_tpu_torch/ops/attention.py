@@ -3,9 +3,9 @@
 Layout: (batch, seq, heads, head_dim) — BLHD — at every public function.
 
 - ``dense_attention``: the plain einsum path (scores in q's dtype, fp32
-  softmax, the -1e30 causal sentinel).  Its dropout draws from a
-  ``torch.Generator``: the reference's ``jax.random.bernoulli`` bits cannot
-  be reproduced, so only p = 0 is held to the reference.
+  softmax, the -1e30 causal sentinel).  Its dropout mask is
+  ``core.rng.bernoulli`` of its ``dropout_key``: the reference's
+  ``jax.random.bernoulli`` mask from the same key, bit for bit.
 - ``position_hash_keep``: the reference's counter-free dropout mask, a
   murmur3 finalizer of (row, col) mixed with a seed, bit for bit.
 - Flash attention: ``flash_attention`` dispatches as the reference does
@@ -17,7 +17,17 @@ Layout: (batch, seq, heads, head_dim) — BLHD — at every public function.
   ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``) with plain
   versions beside them (``flash_fwd_ref``, ``flash_bwd_ref``).  CPU
   tensors take the plain versions, CUDA tensors the kernels; there is no
-  fallback between the two.
+  fallback between the two.  Its dense fallback draws the reference's
+  mask of ``jax.random.PRNGKey(dropout_seed)``.
+- ``masked_attention``: the tensor-level entry of
+  ``nn.MultiHeadAttention`` and ``nn.functional``'s SDPA, the reference's
+  ``ops.attention`` SDPA entry under another name (this directory names
+  no library kernel, not even by coincidence).  No
+  mask, or a key-padding mask (``_is_key_padding_mask``), goes through
+  ``flash_attention`` (the kernels where L tiles by 128); any other mask
+  takes ``dense_attention``.  With dropout on, the key is the next draw
+  of ``core.rng``'s stream, and the flash seed the low 32 bits of
+  ``jax.random.bits`` of it, as in the reference.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ import math
 
 import torch
 
+from ..core import rng
 from ._build import note_launch
 
 _NEG_INF = -1e30
@@ -41,10 +52,11 @@ _M32 = 0xFFFFFFFF
 # ---------------------------------------------------------------------------
 
 def dense_attention(q, k, v, mask=None, causal=False, scale=None,
-                    dropout_p=0.0, generator=None):
+                    dropout_p=0.0, dropout_key=None):
     """q, k, v: (B, L, H, D).  ``mask``: additive, broadcastable to
     (B, H, Lq, Lk).  Dropout applies when ``dropout_p > 0`` and a
-    ``generator`` is given (the reference's rule with its PRNG key)."""
+    ``dropout_key`` (``core.rng`` key data) is given, as in the
+    reference: keep = ``bernoulli(dropout_key, 1 - p, (B, H, Lq, Lk))``."""
     D = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     scores = torch.einsum("blhd,bmhd->bhlm", q, k) * torch.full(
@@ -58,9 +70,9 @@ def dense_attention(q, k, v, mask=None, causal=False, scale=None,
     if mask is not None:
         scores = scores + mask.to(scores.dtype)
     probs = torch.softmax(scores.float(), -1).to(q.dtype)
-    if dropout_p > 0.0 and generator is not None:
-        keep = torch.rand(probs.shape, generator=generator,
-                          device=probs.device) < 1.0 - dropout_p
+    if dropout_p > 0.0 and dropout_key is not None:
+        keep = rng.bernoulli(dropout_key, 1.0 - dropout_p, probs.shape,
+                             device=probs.device)
         probs = torch.where(keep, probs / (1.0 - dropout_p),
                             torch.zeros((), dtype=probs.dtype,
                                         device=probs.device))
@@ -404,8 +416,45 @@ def flash_attention(q, k, v, causal=False, scale=None, key_mask=None,
                                      float(dropout_p))
     mask4 = None if key_mask is None else \
         key_mask.reshape(B, 1, 1, k.shape[1]).to(torch.float32)
-    gen = None
-    if dropout_p > 0.0:
-        gen = torch.Generator(device=q.device).manual_seed(seed)
     return dense_attention(q, k, v, mask=mask4, causal=causal, scale=scale,
-                           dropout_p=dropout_p, generator=gen)
+                           dropout_p=dropout_p,
+                           dropout_key=rng.make_key(seed)
+                           if dropout_p > 0.0 else None)
+
+
+def _is_key_padding_mask(m, B, Lk) -> bool:
+    """True for masks that broadcast over heads and query rows: (B, 1, 1,
+    Lk), (1, 1, 1, Lk) or (B, 1, Lk).  A 2-D (B, Lk) mask is not one: it
+    is ambiguous with a (Lq, Lk) positional mask when B == Lq, which dense
+    attention broadcasts over the batch."""
+    if m is None:
+        return False
+    return tuple(m.shape) in ((B, 1, 1, Lk), (1, 1, 1, Lk), (B, 1, Lk))
+
+
+def _seed_of(key) -> int:
+    """``jax.random.bits(key, (), uint32)``: the flash kernels' seed, one
+    scalar draw (the whole draw on every rank of a mesh step)."""
+    with rng.batch_broadcast():
+        return int(rng.random_bits(key, 32, (), device="cpu"))
+
+
+def masked_attention(query, key, value, attn_mask=None, dropout_p=0.0,
+                     is_causal=False, training=True, name=None):
+    """Attention over (B, L, H, D) tensors with an additive
+    ``attn_mask``.  No mask or a key-padding mask takes
+    ``flash_attention`` (the mask broadcast to (B, Lk)); any other takes
+    ``dense_attention``.  ``dropout_p`` applies in training only, keyed by
+    the next draw of ``core.rng``'s stream."""
+    B, Lk = key.shape[0], key.shape[1]
+    p = dropout_p if training else 0.0
+    dkey = rng.next_key() if p > 0.0 else None
+    if attn_mask is None or _is_key_padding_mask(attn_mask, B, Lk):
+        km = None if attn_mask is None else attn_mask.to(
+            torch.float32).reshape(attn_mask.shape[0], Lk).expand(B, Lk)
+        return flash_attention(query, key, value, causal=is_causal,
+                               key_mask=km, dropout_p=p,
+                               dropout_seed=None if dkey is None
+                               else _seed_of(dkey))
+    return dense_attention(query, key, value, mask=attn_mask,
+                           causal=is_causal, dropout_p=p, dropout_key=dkey)

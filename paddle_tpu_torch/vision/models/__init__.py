@@ -1,14 +1,13 @@
 """``paddle_tpu_torch.vision.models`` (counterpart of
 ``paddle_tpu/vision/models``): the ten families of the reference's zoo
 (ResNet, LeNet, AlexNet, VGG, SqueezeNet, MobileNet V1/V2, GoogLeNet,
-InceptionV3, DenseNet, ShuffleNetV2), and :func:`params_from_numpy`,
-which carries the reference's weights and running statistics across."""
+InceptionV3, DenseNet, ShuffleNetV2), and ``params_from_numpy``
+(``nn.params_from_numpy``, kept here under its first name), which carries
+the reference's weights and running statistics across."""
 
 from __future__ import annotations
 
-import numpy as np
-import torch
-
+from ...nn.layer.base import params_from_numpy  # noqa: F401
 from ._utils import ConvBNReLU  # noqa: F401
 from .alexnet import AlexNet, alexnet  # noqa: F401
 from .densenet import (  # noqa: F401
@@ -29,33 +28,6 @@ from .shufflenetv2 import (  # noqa: F401
     shufflenet_v2_x1_5, shufflenet_v2_x2_0)
 from .squeezenet import SqueezeNet, squeezenet1_0, squeezenet1_1  # noqa: F401
 from .vgg import VGG, vgg11, vgg13, vgg16, vgg19  # noqa: F401
-
-
-def _load(kind, named, arrays):
-    if set(named) != set(arrays):
-        raise ValueError(f"{kind} names differ: missing "
-                         f"{sorted(set(named) - set(arrays))}, unexpected "
-                         f"{sorted(set(arrays) - set(named))}")
-    for n, t in named.items():
-        arr = np.asarray(arrays[n])
-        if arr.shape != tuple(t.shape):
-            raise ValueError(f"{kind} {n}: shape {arr.shape} != "
-                             f"{tuple(t.shape)}")
-        t.copy_(torch.from_numpy(np.array(arr)))
-
-
-def params_from_numpy(model, params, buffers=None):
-    """Copy the reference's numpy parameters (and, given ``buffers``, its
-    running statistics) into ``model`` by name, with no mapping and no
-    transpose: ``params, buffers = functionalize(m)[1:]`` of a
-    ``paddle_tpu`` model, as numpy.  Each value is cast to the model
-    tensor's dtype; a missing, extra or mis-shaped name raises.  Returns
-    ``model``."""
-    with torch.no_grad():
-        _load("parameter", dict(model.named_parameters()), params)
-        if buffers is not None:
-            _load("buffer", dict(model.named_buffers()), buffers)
-    return model
 
 
 __all__ = ["LeNet", "ResNet", "BasicBlock", "BottleneckBlock", "resnet18",
