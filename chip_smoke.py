@@ -426,6 +426,27 @@ Phases (any failure exits non-zero before the result lines):
    outputs exactly; (d) ``save``
    of (a)'s trained ``state_dict`` and ``load`` into a fresh model on the
    card: logits bit-equal, bytes and seconds printed.
+30. the random surface, the RNNs and beam search, with no kernel of the
+   port on the path (the phase fails if any of the eight launches): (a)
+   every ``core.rng`` law at 2^20 draws on the card against the same
+   draw on the CPU — bits, uniforms (f32, bf16, fp16, f64 on [0, 1)),
+   bernoulli, randint and permutation bit-equal, f64 uniform on other
+   bounds within 1 ulp, normal, truncated normal and exponential within
+   4 ulp, gumbel within 4 ulp of max(1, |x|), categorical, poisson and
+   binomial flipping at most 1e-4 of the draws; one 4096^2 uniform,
+   normal and randint draw timed against its bytes bound; (b) the PTB
+   "medium" LSTM language model of Zaremba, Sutskever & Vinyals 2014
+   (vocab 10000, 2 layers of 650, 35 steps, batch 20, dropout 0.5, SGD lr
+   1 with a global-norm clip of 5, the layers' default initializers)
+   built on the card after ``seed(0)`` bit-equal to the CPU build, 2 warm
+   and 5 timed eager steps on Zipf-distributed tokens (ms/step,
+   tokens/s, peak memory), and card vs CPU at 2 layers of 64 (losses and
+   gradients within 1e-5 of their scale, the dropout masks drawn alike);
+   (c) ``dynamic_decode`` of a ``BeamSearchDecoder`` over
+   ``LSTMCell(650, 650)`` with (b)'s embedding and head, beam 4, batch
+   20, 35 steps: ms a call, ids equal the CPU's but where a row leaves
+   them at a step whose top candidates lie within 1e-4 (printed), the
+   other rows' log-probs within 1e-4.
 
 Then each kernel is timed at its main path's shapes beside its plain
 version, one PyTorch call computing the same function (``library_ms``,
@@ -507,6 +528,15 @@ def check(ok, msg):
 
 def say(*parts):
     print(*parts, flush=True)
+
+
+def seed_build(n):
+    """Seed a build: the port's layers draw their weights from
+    ``core.rng``'s stream (``paddle_tpu_torch.seed``), anything else from
+    torch's generator."""
+    import paddle_tpu_torch
+    torch.manual_seed(n)
+    paddle_tpu_torch.seed(n)
 
 
 # ------------------------------------------------------------- phase 1 --
@@ -5920,15 +5950,17 @@ def vision_card_vs_cpu(build, B, shape, n_classes, dtype, steps, lr=0.1):
     on the CPU, step ``t`` under the key ``fold_in_step_key(VISION_KEY,
     t)``; returns (card losses, CPU losses, the
     largest ``|card - cpu| / (1 + |cpu|)`` over every parameter and
-    running statistic, their count)."""
+    running statistic, their count).  The card's build draws the weights;
+    the CPU's is built on ``meta`` (no draw: the CPU's threefry over a
+    vgg16 takes seconds) and takes the card's."""
     from paddle_tpu_torch.jit.functional import fold_in_step_key
     from paddle_tpu_torch.vision.models import params_from_numpy
 
-    cpu = build("cpu").to(dtype)
-    card = params_from_numpy(
-        build("cuda").to(dtype),
-        {n: p.detach().numpy() for n, p in cpu.named_parameters()},
-        {n: b.numpy() for n, b in cpu.named_buffers()})
+    card = build("cuda").to(dtype)
+    cpu = params_from_numpy(
+        build("meta").to_empty(device="cpu").to(dtype),
+        {n: p.detach().cpu().numpy() for n, p in card.named_parameters()},
+        {n: b.cpu().numpy() for n, b in card.named_buffers()})
     out = []
     for model, dev in ((card, "cuda"), (cpu, "cpu")):
         step, state, x, y = vision_step(model, lr, B, shape, n_classes,
@@ -5955,7 +5987,7 @@ def phase23(card):
     from paddle_tpu_torch.vision.models import LeNet, resnet50
 
     t0 = time.perf_counter()
-    torch.manual_seed(0)
+    seed_build(0)
     model = resnet50(data_format="NHWC", device="cuda")
     r = vision_cell("(a) resnet50 NHWC B 128 224x224x3 bf16 input, fp32 "
                     "parameters, Momentum 0.1", model, 0.1, 128,
@@ -6060,7 +6092,7 @@ def phase24(card):
     t0 = time.perf_counter()
     cells = {}
     for name, side, lr in FAMILY_CELLS:
-        torch.manual_seed(0)
+        seed_build(0)
         model = getattr(tm, name)(device="cuda")
         cells[name] = vision_cell(
             f"(a) {name} B {FAMILY_B} {side}x{side}x3 fp32, 1000 classes, "
@@ -6079,7 +6111,7 @@ def phase24(card):
         small = 112 if side == 299 else 64
 
         def build(dev, name=name):
-            torch.manual_seed(0)
+            seed_build(0)
             return getattr(tm, name)(num_classes=10, device=dev)
 
         gl, cl, worst, n = vision_card_vs_cpu(
@@ -7213,7 +7245,7 @@ def dp28_model(name, dev):
     or a family at 10 classes in float64, from seed 0."""
     from paddle_tpu_torch.vision import models as tm
 
-    torch.manual_seed(0)
+    seed_build(0)
     if name == "resnet50":
         return tm.resnet50(data_format="NHWC", device=dev)
     if name == "resnet50_f64":
@@ -7438,7 +7470,7 @@ def phase28_norms(card):
         g = rng.standard_normal(shape).astype(np.float32)
         res = []
         for dev in ("cpu", "cuda"):
-            torch.manual_seed(28)
+            seed_build(28)
             with nn.building("cpu"):
                 layer = (None if name == "normalize"
                          else getattr(nn, name)(*args))
@@ -7651,7 +7683,7 @@ def phase29_train(card):
     from paddle_tpu_torch.ops import attention as A
     from paddle_tpu_torch.optimizer import AdamW
 
-    torch.manual_seed(29)
+    seed_build(29)
     model = p29_model(P29["layers"], 0.1, "cuda").bfloat16()
     n_params = sum(p.numel() for p in model.parameters())
     batch = p29_batch(P29_B, P29_L, "cuda")
@@ -7769,7 +7801,7 @@ def phase29_cmp(card):
 
     from paddle_tpu_torch.core import rng
 
-    torch.manual_seed(291)
+    seed_build(291)
     cpu = p29_model(P29_CMP_LAYERS, 0.1, "cpu")
     for dt, tol in ((torch.float32, P29_FP32_TOL),
                     (torch.bfloat16, P29_BF16_TOL)):
@@ -8006,7 +8038,7 @@ def phase29_table(card):
     for name, call, arrays, ctor in p29_table():
         layer = {}
         if ctor is not None:
-            torch.manual_seed(29)
+            seed_build(29)
             with nn.building("cpu"):
                 layer["cpu"] = ctor(nn)
             layer["cuda"] = copy.deepcopy(layer["cpu"]).to("cuda")
@@ -8056,6 +8088,368 @@ def phase29(card):
     phase29_table(card)
     say(f"phase29 took {time.perf_counter() - t0:.1f} s on {card}")
     return launches
+
+
+# ------------------------------------------------------------ phase 30 --
+
+P30_N = 1 << 20                 # draws a law
+P30_ULPS = 4                    # the normal laws, card vs CPU (fp32)
+P30_FLIPS = 1e-4                # the discrete laws' share of flipped draws
+P30_TIE = 1e-4                  # a beam step's top candidates this close
+# the PTB "medium" LSTM language model of Zaremba, Sutskever & Vinyals
+# (arXiv:1409.2329): its widths, unrolling, batch, dropout and optimizer;
+# the layers' default initializers (its +-0.05 needs ParamAttr)
+PTB = {"vocab": 10000, "hidden": 650, "layers": 2, "steps": 35,
+       "batch": 20, "dropout": 0.5, "lr": 1.0, "clip": 5.0}
+P30_BEAM = 4
+P30_KERNELS = ("ragged_paged_attention.ragged_attention_cuda",
+               "attention.flash_fwd_cuda", "attention.flash_bwd_dq_cuda",
+               "attention.flash_bwd_dkv_cuda", "fused.fused_ln_fwd_cuda",
+               "fused.fused_ln_bwd_cuda", "fused.fused_adamw_flat_cuda",
+               "paged_attention.paged_decode_attention_cuda")
+
+
+def p30_launches():
+    """Every kernel wrapper's launch count, by name."""
+    import importlib
+    out = {}
+    for path in P30_KERNELS:
+        mod, fn = path.split(".")
+        out[fn] = getattr(importlib.import_module(
+            f"paddle_tpu_torch.ops.{mod}"), fn).launches
+    return out
+
+
+def p30_ulps(got, want, at_scale=False):
+    """The largest fp32 ulp distance of ``got`` from ``want`` (of
+    max(1, |want|) with ``at_scale``)."""
+    g = got.detach().float().cpu().numpy()
+    w = want.detach().float().cpu().numpy()
+    if at_scale:
+        ulp = np.spacing(np.maximum(1.0, np.abs(w)).astype(np.float32))
+        return float((np.abs(g.astype(np.float64) - w) / ulp).max())
+    return int(np.abs(g.view(np.int32).astype(np.int64)
+                      - w.view(np.int32).astype(np.int64)).max())
+
+
+def phase30_laws(card):
+    """(a) every law of ``core.rng`` at 2^20 draws on the card against the
+    same draw on the CPU; one 4096^2 uniform, normal and randint draw
+    timed against its bytes bound."""
+    from paddle_tpu_torch.core import rng
+
+    key, n = rng.make_key(30), P30_N
+    r = np.random.RandomState(30)
+    lam = torch.from_numpy(r.uniform(0, 30, n).astype(np.float32))
+    count = torch.from_numpy(r.randint(0, 200, n).astype(np.float32))
+    prob = torch.from_numpy(r.uniform(0, 1, n).astype(np.float32))
+    logits = torch.from_numpy(r.randn(n, 8).astype(np.float32))
+    f32, f64 = torch.float32, torch.float64
+    exact = {
+        "bits8": lambda d: rng.random_bits(key, 8, (n,), d),
+        "bits16": lambda d: rng.random_bits(key, 16, (n,), d),
+        "bits32": lambda d: rng.random_bits(key, 32, (n,), d),
+        "bits64": lambda d: rng.random_bits(key, 64, (n,), d),
+        "uniform_f32": lambda d: rng.uniform(key, (n,), f32, -0.3, 2.7, d),
+        "uniform_bf16": lambda d: rng.uniform(key, (n,), torch.bfloat16,
+                                              -1e-2, 1e-2, d),
+        "uniform_fp16": lambda d: rng.uniform(key, (n,), torch.float16,
+                                              -0.3, 2.7, d),
+        "uniform_f64_unit": lambda d: rng.uniform(key, (n,), f64, device=d),
+        "bernoulli": lambda d: rng.bernoulli(key, 0.3, (n,), f32, d),
+        "randint": lambda d: rng.randint(key, (n,), -5, 1000003, device=d),
+        "randint_int8": lambda d: rng.randint(key, (n,), -3, 300,
+                                              torch.int8, d),
+        "permutation": lambda d: rng.permutation(key, n, device=d),
+    }
+    close = {
+        "normal": (lambda d: rng.normal(key, (n,), f32, d), False),
+        "truncated_normal": (lambda d: rng.truncated_normal(
+            key, -2.0, 2.0, (n,), f32, d), False),
+        "exponential": (lambda d: rng.exponential(key, (n,), f32, d), False),
+        "gumbel": (lambda d: rng.gumbel(key, (n,), f32, d), True),
+    }
+    discrete = {
+        "categorical": lambda d: rng.categorical(key, logits.to(d)),
+        "poisson": lambda d: rng.poisson(key, lam.to(d)),
+        "binomial": lambda d: rng.binomial(key, count.to(d), prob.to(d)),
+    }
+    rows = []
+    for name, draw in exact.items():
+        t0 = time.perf_counter()
+        got = draw("cuda")
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        want = draw("cpu")
+        same = torch.equal(got.cpu(), want)
+        check(same, f"phase30 (a): {name} on the card is not the CPU's draw")
+        rows.append(f"{name} equal ({t_card * 1e3:.1f} ms cold)")
+    got = rng.uniform(key, (n,), f64, -0.3, 2.7, "cuda").cpu()
+    want = rng.uniform(key, (n,), f64, -0.3, 2.7, "cpu")
+    u64 = int((got.view(torch.int64) - want.view(torch.int64)).abs().max())
+    check(u64 <= 1, f"phase30 (a): uniform_f64 [-0.3, 2.7) is {u64} ulp "
+                    f"from the CPU's (tol 1)")
+    rows.append(f"uniform_f64 {u64} ulp")
+    for name, (draw, at_scale) in close.items():
+        u = p30_ulps(draw("cuda"), draw("cpu"), at_scale)
+        check(u <= P30_ULPS, f"phase30 (a): {name} is {u} ulp from the "
+                             f"CPU's (tol {P30_ULPS})")
+        rows.append(f"{name} {u:g} ulp" + (" of max(1,|x|)" if at_scale
+                                           else ""))
+    for name, draw in discrete.items():
+        got, want = draw("cuda").cpu(), draw("cpu")
+        flips = int((got != want).sum()) if got.dtype != f32 else int(
+            ((got != want) & ~(got.isnan() & want.isnan())).sum())
+        check(flips <= P30_FLIPS * n, f"phase30 (a): {name} flips {flips} "
+              f"of {n} draws (tol {P30_FLIPS:g})")
+        rows.append(f"{name} {flips} flips")
+    say(f"phase30 (a): every law at {n} draws, card vs CPU: "
+        + "; ".join(rows) + f"; {card}")
+    side = 4096
+    nbytes = side * side * 4
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    for name, draw in (
+            ("uniform", lambda: rng.uniform(key, (side, side), f32,
+                                            device="cuda")),
+            ("normal", lambda: rng.normal(key, (side, side), f32, "cuda")),
+            ("randint", lambda: rng.randint(key, (side, side), 0, 1000,
+                                            device="cuda"))):
+        ms = time_cold_ms(draw, iters=5, warmup=1)
+        say(f"phase30 (a): one {side}x{side} {name} draw (f32/int32) "
+            f"{ms:.3f} ms, its bytes bound {bound:.4f} ms ({ms / bound:.0f}x;"
+            f" {nbytes} bytes written) on {card}")
+
+
+def p30_model(cfg, device, seed=0):
+    """A user's PTB LSTM language model (embedding, dropout, ``nn.LSTM``
+    with dropout between layers, dropout, linear head) built on
+    ``device`` after ``seed(seed)``."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+
+    class PTBModel(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embedding = nn.Embedding(cfg["vocab"], cfg["hidden"])
+            self.lstm = nn.LSTM(cfg["hidden"], cfg["hidden"],
+                                num_layers=cfg["layers"],
+                                dropout=cfg["dropout"])
+            self.head = nn.Linear(cfg["hidden"], cfg["vocab"])
+
+        def forward(self, ids, states):
+            p = cfg["dropout"]
+            x = F.dropout(self.embedding(ids), p, training=self.training)
+            out, states = self.lstm(x, states)
+            out = F.dropout(out, p, training=self.training)
+            return self.head(out), states
+
+    P.seed(seed)
+    with nn.building(device):
+        return PTBModel()
+
+
+def p30_data(cfg, n_steps, device):
+    """A token stream cut into ``n_steps`` windows of (batch, steps)
+    inputs and their next tokens: Zipf-distributed ids (p(k) ~ 1/(k+1),
+    RandomState(30)), as word frequencies are, so a few steps lower the
+    loss below log(vocab)."""
+    r = np.random.RandomState(30)
+    p = 1.0 / np.arange(1, cfg["vocab"] + 1)
+    toks = torch.from_numpy(r.choice(cfg["vocab"], (
+        cfg["batch"], n_steps * cfg["steps"] + 1), p=p / p.sum())).to(device)
+    S = cfg["steps"]
+    return [(toks[:, i * S:(i + 1) * S], toks[:, i * S + 1:(i + 1) * S + 1])
+            for i in range(n_steps)]
+
+
+def p30_trainer(model, cfg, device):
+    """One truncated-BPTT step (the states carried, detached): the loss,
+    after SGD with the global-norm clip."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import SGD
+
+    opt = SGD(learning_rate=cfg["lr"], parameters=model.parameters(),
+              grad_clip=nn.ClipGradByGlobalNorm(cfg["clip"]))
+    shape = (cfg["layers"], cfg["batch"], cfg["hidden"])
+    state = [(torch.zeros(shape, device=device),
+              torch.zeros(shape, device=device))]
+
+    def step(ids, labels, grads=None):
+        logits, (h, c) = model(ids, state[0])
+        loss = F.cross_entropy(logits.reshape(-1, cfg["vocab"]),
+                               labels.reshape(-1))
+        loss.backward()
+        if grads is not None:
+            grads.append({n: p.grad.detach().cpu().clone()
+                          for n, p in model.named_parameters()})
+        opt.step()
+        opt.clear_grad()
+        state[0] = (h.detach(), c.detach())
+        return loss.detach()
+    return step
+
+
+def phase30_ptb(card):
+    """(b) the PTB medium LSTM LM: built on the card after ``seed(0)``
+    bit-equal to the CPU build, 2 warm and 5 timed eager steps, 2 more
+    under the profiler (the device's idle share); card vs
+    CPU at 2 layers of 64.  Returns the trained card model and the CPU
+    build."""
+    model = p30_model(PTB, "cuda")
+    cpu = p30_model(PTB, "cpu")
+    for (n, p), (_, q) in zip(model.named_parameters(),
+                              cpu.named_parameters()):
+        check(torch.equal(p.detach().cpu(), q.detach()),
+              f"phase30 (b): {n} built on the card is not the CPU build")
+    n_params = sum(p.numel() for p in model.parameters())
+    data = p30_data(PTB, 7, "cuda")
+    model.train()
+    step = p30_trainer(model, PTB, "cuda")
+    losses = [step(*data[i]) for i in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses += [step(*data[i]) for i in range(2, 7)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 5 * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # two more steps under the profiler: the device's busy share of a step
+    prof = start_profile(cpu=False)
+    for i in (5, 6):
+        step(*data[i])
+    report_profile(prof, 2)
+    busy = report_profile.last
+    vals = [float(v) for v in losses]
+    check(all(np.isfinite(vals)), f"phase30 (b): non-finite loss {vals}")
+    check(vals[-1] < vals[0], f"phase30 (b): the last loss is not below "
+                              f"the first: {vals}")
+    tokens = PTB["batch"] * PTB["steps"]
+    say(f"phase30 (b): PTB medium LSTM LM ({n_params} parameters, vocab "
+        f"{PTB['vocab']}, {PTB['layers']}x{PTB['hidden']}, {PTB['steps']} "
+        f"steps, batch {PTB['batch']}, dropout {PTB['dropout']}, SGD lr "
+        f"{PTB['lr']}, global-norm clip {PTB['clip']}) built bit-equal to "
+        f"the CPU build; {ms:.2f} ms/step, {tokens / ms * 1e3:.0f} tokens/s,"
+        f" peak {peak:.2f} GiB over 5 timed eager steps; 2 profiled steps: "
+        f"device busy {busy['busy_ms']:.3f} of {busy['wall_ms']:.3f} ms a "
+        f"step ({100 * (1 - busy['busy_share']):.1f}% idle), "
+        f"{busy['kernels']:.0f} device kernels a step; losses "
+        + " ".join(f"{v:.4f}" for v in vals) + f"; {card}")
+    small = dict(PTB, hidden=64)
+    worst = {}
+    runs = []
+    for dev in ("cuda", "cpu"):
+        m = p30_model(small, dev)
+        m.train()
+        st = p30_trainer(m, small, dev)
+        grads = []
+        losses = [float(st(ids, lab, grads))
+                  for ids, lab in p30_data(small, 2, dev)]
+        runs.append((losses, grads))
+    (l_card, g_card), (l_cpu, g_cpu) = runs
+    for a, b in zip(l_card, l_cpu):
+        worst["loss"] = max(worst.get("loss", 0.0), abs(a - b) / max(1.0,
+                                                                     abs(b)))
+    for ga, gb in zip(g_card, g_cpu):
+        for name in gb:
+            scale = max(1.0, float(gb[name].abs().max()))
+            err = float((ga[name] - gb[name]).abs().max()) / scale
+            worst[name] = max(worst.get(name, 0.0), err)
+    bad = {k: v for k, v in worst.items() if v > 1e-5}
+    check(not bad, f"phase30 (b): card vs CPU at 2x64 past 1e-5: {bad}")
+    say(f"phase30 (b): card vs CPU at 2 layers of 64, 2 steps with the "
+        f"reference's dropout masks: worst loss {worst.pop('loss'):.2e}, "
+        f"worst gradient {max(worst.values()):.2e} of the tensor's scale "
+        f"(tol 1e-5); {card}")
+    return model, cpu
+
+
+def phase30_decode(card, model, cpu):
+    """(c) ``dynamic_decode`` of a ``BeamSearchDecoder`` over
+    ``LSTMCell(650, 650)`` with (b)'s trained embedding and head, beam 4,
+    batch 20, 35 steps: card vs CPU and ms a call."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import nn
+
+    with torch.no_grad():
+        cpu.embedding.weight.copy_(model.embedding.weight.cpu())
+        cpu.head.weight.copy_(model.head.weight.cpu())
+        cpu.head.bias.copy_(model.head.bias.cpu())
+    model.eval()
+    cpu.eval()
+
+    class Recording(nn.BeamSearchDecoder):
+        """Keeps each step's top K + 1 totals (the candidates a tie could
+        swap)."""
+        tops = None
+
+        def _top(self, flat):
+            if self.tops is not None:
+                self.tops.append(torch.sort(flat, dim=-1, descending=True
+                                            ).values[:, :self.beam_size + 1]
+                                 .cpu())
+            return super()._top(flat)
+
+    out = {}
+    H, B, S = PTB["hidden"], PTB["batch"], PTB["steps"]
+    for dev, m in (("cuda", model), ("cpu", cpu)):
+        P.seed(1)
+        with nn.building(dev):
+            cell = nn.LSTMCell(H, H)
+        dec = Recording(cell, 0, 1, P30_BEAM, embedding_fn=m.embedding,
+                        output_fn=m.head)
+        dec.tops = [] if dev == "cpu" else None
+        init = (torch.zeros(B, H, device=dev), torch.zeros(B, H, device=dev))
+        with torch.no_grad():
+            ids, lp = nn.dynamic_decode(dec, init, max_step_num=S)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    nn.dynamic_decode(dec, init, max_step_num=S)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) / 3 * 1e3
+        out[dev] = (ids.cpu(), lp.cpu(), dec.tops)
+    (ids_c, lp_c, _), (ids_h, lp_h, tops) = out["cuda"], out["cpu"]
+    check(ids_c.shape == ids_h.shape, f"phase30 (c): ids {tuple(ids_c.shape)}"
+                                      f" vs {tuple(ids_h.shape)}")
+    ties, worst = [], 0.0
+    for b in range(B):
+        diff = (ids_c[b] != ids_h[b]).any(dim=0).nonzero()
+        if len(diff):
+            t = int(diff[0])
+            gap = float((tops[t][b][:-1] - tops[t][b][1:]).min())
+            check(gap < P30_TIE, f"phase30 (c): row {b} leaves the CPU's "
+                  f"ids at step {t}, whose top candidates are {gap:.2e} "
+                  f"apart (a tie is under {P30_TIE:g})")
+            ties.append(f"row {b} step {t} (gap {gap:.1e})")
+        else:
+            worst = max(worst, float((lp_c[b] - lp_h[b]).abs().max()))
+    check(worst <= 1e-4, f"phase30 (c): log-probs {worst:.2e} from the "
+                         f"CPU's (tol 1e-4)")
+    say(f"phase30 (c): dynamic_decode, BeamSearchDecoder over LSTMCell({H},"
+        f" {H}) with (b)'s embedding and head, beam {P30_BEAM}, batch {B}, "
+        f"{ids_c.shape[-1]} steps: {ms:.1f} ms a call; ids equal the CPU's "
+        f"in {B - len(ties)} of {B} rows"
+        + (f", the rest leaving at a tie: {', '.join(ties)}" if ties else "")
+        + f"; log-probs within {worst:.2e}; {card}")
+
+
+def phase30(card):
+    """The random surface on ``core.rng``, the RNNs and beam decoding:
+    (a) every law card vs CPU, (b) the PTB medium LSTM LM, (c) beam
+    search.  No kernel of the port lies on this path: the phase checks
+    that it launched none."""
+    t0 = time.perf_counter()
+    before = p30_launches()
+    phase30_laws(card)
+    model, cpu = phase30_ptb(card)
+    phase30_decode(card, model, cpu)
+    after = p30_launches()
+    check(after == before, f"phase30: kernels launched on a path with "
+                           f"none: {before} -> {after}")
+    say(f"phase30 took {time.perf_counter() - t0:.1f} s on {card}")
 
 
 def kernel_row(name, source, replaces, launches, r):
@@ -8263,6 +8657,10 @@ def main():
     torch.cuda.empty_cache()
     eager_launches = phase29(card)
     lap("phase29")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase30(card)
+    lap("phase30")
 
     ms, plain_ms, library_ms, bound_ms, bound_by, _ = t = time_pack(main_pack)
     say_pack_time("bf16 pools at the phase-3 shapes", t, card)

@@ -162,6 +162,19 @@ dygraph API over plain ``torch.Tensor``s; no methods are patched on):
 - ``framework.io`` and the top level: ``save``/``load`` in the
   reference's pickle format (bf16 both ways), ``grad``, ``to_tensor``,
   ``seed``, ``create_parameter``, the places and the mode switches
+
+and the random surface, the recurrent layers and beam search, plain
+PyTorch as XLA computed them for the reference:
+
+- ``core.rng`` (every ``jax.random`` law the reference draws: bits of 8
+  to 64, uniform in four float dtypes, normal and truncated normal
+  through XLA's ``erf_inv``, randint, permutation, gumbel, categorical,
+  exponential, poisson, binomial), ``tensor.random``; the initializers,
+  ``rrelu``, ``gumbel_softmax`` and the MoE gate's jitter draw from the
+  streams, so ``seed(s)`` gives the reference's weights and draws
+- ``nn`` (``SimpleRNN``/``LSTM``/``GRU``, their cells, ``RNN``/``BiRNN``,
+  ``BeamSearchDecoder``, ``dynamic_decode``), ``nn.functional``
+  (``class_center_sample``, ``gather_tree``)
 """
 
 import builtins as _builtins
@@ -230,11 +243,11 @@ def resolve_device(device=None) -> torch.device:
 
 
 def seed(value):
-    """``paddle.seed``: reseed ``core.rng``'s streams (the dropout masks)
-    and torch's generators (the initializers' draws)."""
+    """``paddle.seed``: reseed ``core.rng``'s streams, which every draw of
+    the port takes its key from (the initializers, ``tensor.random``, the
+    dropouts)."""
     from .core import rng
     rng.seed(int(value))
-    torch.manual_seed(int(value))
 
 
 def to_tensor(data, dtype=None, place=None, stop_gradient=True):

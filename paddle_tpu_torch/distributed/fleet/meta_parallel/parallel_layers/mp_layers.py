@@ -12,7 +12,7 @@ full weight and computes the dense layer.
 
 The initializer draws the FULL weight (from ``weight_attr``, as a layer
 of the full shape would) and the layer keeps its block, so every rank
-seeded alike (``torch.manual_seed``) holds a block of one weight, and an
+seeded alike (``seed()``: one stream) holds a block of one weight, and an
 ``Assign`` of the full weight gives each rank its block.  Every rank
 computes the same loss (Megatron's convention): a column-parallel input
 goes through ``copy_to_group`` (its gradient summed over the model

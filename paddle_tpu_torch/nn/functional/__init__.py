@@ -4,9 +4,8 @@ the convolutions, the losses, the normalizations and the poolings, and
 the reference's six functions of this file (``scaled_dot_product_attention``
 over ``ops.attention``, ``sequence_mask``, ``diag_embed``,
 ``temporal_shift``, ``npu_identity``, ``sparse_attention``).  Of
-``extras``, ``hsigmoid_loss``, ``margin_cross_entropy``,
-``class_center_sample`` and ``gather_tree`` wait for ROADMAP A8b-1's
-second slice."""
+``extras``, ``hsigmoid_loss`` and ``margin_cross_entropy`` wait for
+ROADMAP A8b-1's next slice."""
 
 from __future__ import annotations
 
@@ -27,7 +26,8 @@ from .common import (  # noqa: F401
 from .conv import (  # noqa: F401
     conv1d, conv1d_transpose, conv2d, conv2d_transpose, conv3d,
     conv3d_transpose)
-from .extras import elu_, max_unpool2d, tanh_, zeropad2d  # noqa: F401
+from .extras import (  # noqa: F401
+    class_center_sample, elu_, gather_tree, max_unpool2d, tanh_, zeropad2d)
 from .loss import (  # noqa: F401
     binary_cross_entropy, binary_cross_entropy_with_logits,
     cosine_embedding_loss, cross_entropy, ctc_loss, dice_loss,

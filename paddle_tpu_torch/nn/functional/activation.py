@@ -1,20 +1,17 @@
 """Activation functionals (counterpart of
 ``paddle_tpu/nn/functional/activation.py``), each the reference's formula
 in PyTorch ops.  The ``_`` forms write into their input and return it, as
-the reference's adopt theirs (``elu_`` and ``tanh_`` are ``extras``').  ``rrelu`` in training and
-``gumbel_softmax`` draw from ``core.rng`` keys through ``jax.random``
-laws the port does not have yet: they raise ``NotImplementedError``
-naming ROADMAP A8b-1 (the random surface)."""
+the reference's adopt theirs (``elu_`` and ``tanh_`` are ``extras``').
+``rrelu`` in training and ``gumbel_softmax`` take one key,
+``core.rng.next_key()``, and draw the reference's uniform and gumbel
+laws on it."""
 
 from __future__ import annotations
 
 import torch
 
+from ...core import rng
 from ...core.dtype import convert_dtype
-
-_RANDOM_LATER = ("{} draws from jax.random's {} law on a core.rng key, "
-                 "which the port does not have yet (ROADMAP A8b-1: the "
-                 "random surface)")
 
 
 def _s(v, x):
@@ -100,11 +97,13 @@ def prelu(x, weight, data_format="NCHW", name=None):
 
 
 def rrelu(x, lower=0.125, upper=0.3333333, training=False, name=None):
-    """Eval mode: ``x`` where non-negative, else ``x`` times the mean
-    slope.  Training draws its slopes (ROADMAP A8b-1)."""
+    """``x`` where non-negative, else ``x`` times a slope: in training a
+    uniform draw on [lower, upper) of ``x``'s dtype an element, else the
+    mean slope."""
     if training:
-        raise NotImplementedError(_RANDOM_LATER.format(
-            "rrelu in training", "uniform"))
+        slope = rng.uniform(rng.next_key(), x.shape, x.dtype, lower, upper,
+                            x.device)
+        return torch.where(x >= 0, x, x * slope)
     return torch.where(x >= 0, x, x * _s((lower + upper) / 2.0, x))
 
 
@@ -177,9 +176,18 @@ def log_softmax(x, axis=-1, dtype=None, name=None):
 
 
 def gumbel_softmax(x, temperature=1.0, hard=False, axis=-1, name=None):
-    """Draws its Gumbel noise (ROADMAP A8b-1)."""
-    raise NotImplementedError(_RANDOM_LATER.format("gumbel_softmax",
-                                                   "gumbel"))
+    """The softmax over ``axis`` of ``(x + g) / temperature``, g a gumbel
+    draw of ``x``'s shape and dtype; ``hard``: the one-hot of its argmax
+    in the forward, the soft gradient in the backward."""
+    g = rng.gumbel(rng.next_key(), x.shape, x.dtype, x.device)
+    z = (x + g) / temperature
+    e = torch.exp(z - z.amax(dim=axis, keepdim=True).detach())
+    y = e / e.sum(dim=axis, keepdim=True)
+    if not hard:
+        return y
+    idx = torch.argmax(y, dim=axis, keepdim=True)
+    y_hard = torch.zeros_like(y).scatter_(axis, idx, 1.0)
+    return y_hard - y.detach() + y
 
 
 def glu(x, axis=-1, name=None):

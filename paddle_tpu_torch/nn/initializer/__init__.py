@@ -1,11 +1,14 @@
 """Parameter initializers (counterpart of ``paddle_tpu/nn/initializer``).
 
-Each initializer is a callable ``(shape, dtype, generator=None) -> Tensor``
-that draws from ``generator`` (a ``torch.Generator``; the tensor lands on
-its device) or, without one, from torch's default generator on the
-default device.  The laws and the fan rules are the reference's; the
-draws are torch's, so a port model is loaded from the reference's numpy
-state (``vision.models.params_from_numpy``) where values must match.
+Each initializer is a callable ``(shape, dtype) -> Tensor`` on the
+``nn.building`` scope's device (else ``cuda``, raising without a card).
+A drawing one takes one key, ``core.rng.next_key()``, and computes the
+reference's ``jax.random`` law on it (16-bit dtypes draw in fp32, then
+cast), so a model built after ``seed(s)`` holds the reference's initial
+weights: bit for bit for the uniform laws, within a few ulp for the
+normal ones (``core.rng.erf_inv``).  ``Constant``, ``Assign``, ``Dirac``
+and ``Bilinear`` draw nothing.  On the ``meta`` device nothing is drawn
+and no key is taken, so a build there leaves the stream where it was.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ import math
 
 import numpy as np
 import torch
+
+from ...core import rng
 
 _HALF = (torch.bfloat16, torch.float16)
 
@@ -37,17 +42,24 @@ def to_dtype(dtype) -> torch.dtype:
     return convert_dtype(dtype)
 
 
-def _empty(shape, dtype, generator):
-    """An uninitialised tensor to sample into: 16-bit floats sample in
-    fp32, as the reference does."""
-    dt = to_dtype(dtype)
-    return torch.empty(tuple(int(s) for s in shape),
-                       dtype=torch.float32 if dt in _HALF else dt,
-                       device=None if generator is None else generator.device)
+def _device():
+    from ..layer.base import build_device
+    return build_device()
+
+
+def _draw(law, shape, dtype):
+    """``law(key, shape, sample dtype, device)`` cast to ``dtype``: 16-bit
+    floats sample in fp32, as the reference does; on ``meta`` an empty
+    tensor, taking no key."""
+    shape, dt, dev = tuple(int(s) for s in shape), to_dtype(dtype), _device()
+    if dev.type == "meta":
+        return torch.empty(shape, dtype=dt, device=dev)
+    sample = torch.float32 if dt in _HALF else dt
+    return law(rng.next_key(), shape, sample, dev).to(dt)
 
 
 class Initializer:
-    def __call__(self, shape, dtype, generator=None):
+    def __call__(self, shape, dtype):
         raise NotImplementedError
 
 
@@ -55,69 +67,66 @@ class Constant(Initializer):
     def __init__(self, value: float = 0.0):
         self.value = value
 
-    def __call__(self, shape, dtype, generator=None):
+    def __call__(self, shape, dtype):
         return torch.full(tuple(int(s) for s in shape), self.value,
-                          dtype=to_dtype(dtype),
-                          device=None if generator is None
-                          else generator.device)
+                          dtype=to_dtype(dtype), device=_device())
 
 
 class Normal(Initializer):
+    """``mean + std * z``, z ``jax.random.normal``'s draw."""
+
     def __init__(self, mean: float = 0.0, std: float = 1.0):
         self.mean, self.std = mean, std
 
-    def __call__(self, shape, dtype, generator=None):
-        out = _empty(shape, dtype, generator).normal_(self.mean, self.std,
-                                                      generator=generator)
-        return out.to(to_dtype(dtype))
+    def __call__(self, shape, dtype):
+        return _draw(lambda k, s, dt, dev: self.mean + self.std * rng.normal(
+            k, s, dt, dev), shape, dtype)
 
 
 class TruncatedNormal(Initializer):
-    """``mean + std * z`` with z a standard normal truncated to [-2, 2]."""
+    """``mean + std * z``, z ``jax.random.truncated_normal``'s draw on
+    (-2, 2)."""
 
     def __init__(self, mean: float = 0.0, std: float = 1.0):
         self.mean, self.std = mean, std
 
-    def __call__(self, shape, dtype, generator=None):
-        z = _empty(shape, dtype, generator)
-        lo, hi = (0.5 * (1 + math.erf(b / math.sqrt(2))) for b in (-2.0, 2.0))
-        z.uniform_(2 * lo - 1, 2 * hi - 1, generator=generator)
-        z = torch.erfinv(z).mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
-        return (self.mean + self.std * z).to(to_dtype(dtype))
+    def __call__(self, shape, dtype):
+        return _draw(lambda k, s, dt, dev: self.mean + self.std *
+                     rng.truncated_normal(k, -2.0, 2.0, s, dt, dev),
+                     shape, dtype)
 
 
 class Uniform(Initializer):
     def __init__(self, low: float = -1.0, high: float = 1.0):
         self.low, self.high = low, high
 
-    def __call__(self, shape, dtype, generator=None):
-        out = _empty(shape, dtype, generator).uniform_(self.low, self.high,
-                                                       generator=generator)
-        return out.to(to_dtype(dtype))
+    def __call__(self, shape, dtype):
+        return _draw(lambda k, s, dt, dev: rng.uniform(
+            k, s, dt, self.low, self.high, dev), shape, dtype)
 
 
 class XavierNormal(Initializer):
     def __init__(self, fan_in=None, fan_out=None, gain: float = 1.0):
         self._fan_in, self._fan_out, self.gain = fan_in, fan_out, gain
 
-    def __call__(self, shape, dtype, generator=None):
+    def __call__(self, shape, dtype):
         fi, fo = _fan(shape)
         fi = self._fan_in if self._fan_in is not None else fi
         fo = self._fan_out if self._fan_out is not None else fo
         std = self.gain * math.sqrt(2.0 / (fi + fo))
-        return Normal(0.0, std)(shape, dtype, generator)
+        return Normal(0.0, std)(shape, dtype)
 
 
 class XavierUniform(Initializer):
     def __init__(self, fan_in=None, fan_out=None, gain: float = 1.0):
         self._fan_in, self._fan_out, self.gain = fan_in, fan_out, gain
 
-    def __call__(self, shape, dtype, generator=None):
+    def __call__(self, shape, dtype):
         fi, fo = _fan(shape)
         fi = self._fan_in if self._fan_in is not None else fi
         fo = self._fan_out if self._fan_out is not None else fo
         limit = self.gain * math.sqrt(6.0 / (fi + fo))
-        return Uniform(-limit, limit)(shape, dtype, generator)
+        return Uniform(-limit, limit)(shape, dtype)
 
 
 def _kaiming_gain(negative_slope, nonlinearity):
@@ -132,12 +141,12 @@ class KaimingNormal(Initializer):
         self._fan_in, self.negative_slope = fan_in, negative_slope
         self.nonlinearity = nonlinearity
 
-    def __call__(self, shape, dtype, generator=None):
+    def __call__(self, shape, dtype):
         fi, _ = _fan(shape)
         fi = self._fan_in if self._fan_in is not None else fi
         std = _kaiming_gain(self.negative_slope, self.nonlinearity) \
             / math.sqrt(fi)
-        return Normal(0.0, std)(shape, dtype, generator)
+        return Normal(0.0, std)(shape, dtype)
 
 
 class KaimingUniform(Initializer):
@@ -146,25 +155,24 @@ class KaimingUniform(Initializer):
         self._fan_in, self.negative_slope = fan_in, negative_slope
         self.nonlinearity = nonlinearity
 
-    def __call__(self, shape, dtype, generator=None):
+    def __call__(self, shape, dtype):
         fi, _ = _fan(shape)
         fi = self._fan_in if self._fan_in is not None else fi
         limit = _kaiming_gain(self.negative_slope, self.nonlinearity) \
             * math.sqrt(3.0 / fi)
-        return Uniform(-limit, limit)(shape, dtype, generator)
+        return Uniform(-limit, limit)(shape, dtype)
 
 
 class Assign(Initializer):
     def __init__(self, value):
         self.value = value
 
-    def __call__(self, shape, dtype, generator=None):
+    def __call__(self, shape, dtype):
         v = self.value
         if not isinstance(v, torch.Tensor):
             v = torch.from_numpy(np.array(v))
-        return v.detach().to(
-            device=None if generator is None else generator.device,
-            dtype=to_dtype(dtype)).reshape(tuple(int(s) for s in shape))
+        return v.detach().to(device=_device(), dtype=to_dtype(dtype)).reshape(
+            tuple(int(s) for s in shape))
 
 
 class Orthogonal(Initializer):
@@ -175,16 +183,19 @@ class Orthogonal(Initializer):
     def __init__(self, gain: float = 1.0):
         self.gain = gain
 
-    def __call__(self, shape, dtype, generator=None):
+    def __call__(self, shape, dtype):
         shape = tuple(int(s) for s in shape)
         rows, cols = shape[0], int(np.prod(shape[1:]))
-        flat = _empty((max(rows, cols), min(rows, cols)), torch.float32,
-                      generator).normal_(generator=generator)
-        q, r = torch.linalg.qr(flat)
-        q = q * torch.sign(torch.diagonal(r))
-        q = q.T if rows < cols else q
-        return (self.gain * q[:rows, :cols]).reshape(shape).to(
-            to_dtype(dtype))
+
+        def law(key, _, __, dev):
+            flat = rng.normal(key, (max(rows, cols), min(rows, cols)),
+                              torch.float32, dev)
+            q, r = torch.linalg.qr(flat)
+            q = q * torch.sign(torch.diagonal(r))
+            q = q.T if rows < cols else q
+            return (self.gain * q[:rows, :cols]).reshape(shape)
+        out = _draw(law, shape, torch.float32)
+        return out.to(to_dtype(dtype))
 
 
 class Dirac(Initializer):
@@ -194,7 +205,7 @@ class Dirac(Initializer):
     def __init__(self, groups: int = 1):
         self.groups = groups
 
-    def __call__(self, shape, dtype, generator=None):
+    def __call__(self, shape, dtype):
         shape = tuple(int(s) for s in shape)
         out = np.zeros(shape, np.float32)
         oc, ic = shape[0], shape[1]
@@ -202,9 +213,7 @@ class Dirac(Initializer):
         for g in range(self.groups):
             for i in range(min(oc // self.groups, ic)):
                 out[(g * (oc // self.groups) + i, i) + centers] = 1.0
-        return torch.as_tensor(out, dtype=to_dtype(dtype),
-                               device=None if generator is None
-                               else generator.device)
+        return torch.as_tensor(out, dtype=to_dtype(dtype), device=_device())
 
 
 class Bilinear(Initializer):
@@ -212,7 +221,7 @@ class Bilinear(Initializer):
     for every (out, in) channel pair, its factor taken from ``shape[3]``
     for both axes, as the reference takes it."""
 
-    def __call__(self, shape, dtype, generator=None):
+    def __call__(self, shape, dtype):
         shape = tuple(int(s) for s in shape)
         if len(shape) != 4:
             raise ValueError(f"Bilinear expects a 4-D conv weight, got "
@@ -223,9 +232,7 @@ class Bilinear(Initializer):
         filt = (1 - abs(og[0] / f - c)) * (1 - abs(og[1] / f - c))
         out = np.ascontiguousarray(np.broadcast_to(
             filt.astype(np.float32), shape))
-        return torch.as_tensor(out, dtype=to_dtype(dtype),
-                               device=None if generator is None
-                               else generator.device)
+        return torch.as_tensor(out, dtype=to_dtype(dtype), device=_device())
 
 
 def calculate_gain(nonlinearity: str, param=None) -> float:

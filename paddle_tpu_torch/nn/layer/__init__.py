@@ -1,7 +1,6 @@
 """``paddle_tpu_torch.nn.layer`` (counterpart of ``paddle_tpu/nn/layer``):
-the activation, common, loss, convolution, normalization, pooling and
-transformer layers, the containers, and the MoE layer.  ``rnn`` waits for
-ROADMAP A8b-1's second slice."""
+the activation, common, loss, convolution, normalization, pooling,
+recurrent and transformer layers, the containers, and the MoE layer."""
 
 from .activation import (  # noqa: F401
     CELU, ELU, GELU, GLU, Hardshrink, Hardsigmoid, Hardswish, Hardtanh,
@@ -31,6 +30,9 @@ from .pooling import (  # noqa: F401
     AdaptiveAvgPool1D, AdaptiveAvgPool2D, AdaptiveAvgPool3D,
     AdaptiveMaxPool1D, AdaptiveMaxPool2D, AdaptiveMaxPool3D, AvgPool1D,
     AvgPool2D, AvgPool3D, MaxPool1D, MaxPool2D, MaxPool3D, MaxUnPool2D)
+from .rnn import (  # noqa: F401
+    GRU, LSTM, RNN, BiRNN, GRUCell, LSTMCell, RNNCellBase, SimpleRNN,
+    SimpleRNNCell)
 from .transformer import (  # noqa: F401
     MultiHeadAttention, Transformer, TransformerDecoder,
     TransformerDecoderLayer, TransformerEncoder, TransformerEncoderLayer)

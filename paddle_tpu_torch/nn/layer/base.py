@@ -7,8 +7,10 @@ parameters and buffers in with ``torch.func.functional_call``.
 
 Parameters and buffers are made on the device of the innermost
 :func:`building` scope, or on ``cuda`` outside one (raising without a
-card), and drawn from torch's default generator there: ``torch.manual_seed``
-plays the part of ``paddle.seed``.
+card), each drawn parameter from the next key of ``core.rng``'s stream,
+in the order the layers create them: a model built after
+``paddle_tpu_torch.seed(s)`` holds the reference's weights built after
+``paddle.seed(s)``.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Loss layers (counterpart of ``paddle_tpu/nn/layer/loss.py``): each holds
 its options and calls its ``nn.functional`` loss.  ``HSigmoidLoss`` waits
-with the rest of ``extras`` (ROADMAP A8b-1's second slice)."""
+with ``extras.hsigmoid_loss`` (ROADMAP A8b-1's next slice)."""
 
 from __future__ import annotations
 
@@ -146,13 +146,13 @@ class CTCLoss(Layer):
 
 
 class HSigmoidLoss(Layer):
-    """Waits for ``extras.hsigmoid_loss`` (ROADMAP A8b-1's second
+    """Waits for ``extras.hsigmoid_loss`` (ROADMAP A8b-1's next
     slice)."""
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             "HSigmoidLoss calls extras.hsigmoid_loss, which waits for "
-            "ROADMAP A8b-1's second slice (the rest of extras.py)")
+            "ROADMAP A8b-1's next slice (the rest of extras.py)")
 
 
 __all__ = ["CrossEntropyLoss", "MSELoss", "L1Loss", "NLLLoss", "BCELoss",

@@ -10,8 +10,9 @@ divides the experts, the layer keeps this rank's block of them: the
 experts it holds are the block of the whole draw (every rank builds the
 layer from the same seed), marked ``is_distributed`` with their
 ``_dims_mapping``, as the tensor-parallel layers are.  The reference
-holds all experts and lets GSPMD place them.  Gate jitter draws from
-``core.rng`` in the reference; here it raises until ROADMAP A8b.
+holds all experts and lets GSPMD place them.  Gate jitter (in training)
+takes one key, ``core.rng.next_key()``, as the reference's does; over a
+mesh each rank draws its rows of the global draw (``ops/moe.py``).
 """
 
 from __future__ import annotations
@@ -78,18 +79,17 @@ class MoELayer(Layer):
         return self
 
     def forward(self, x):
+        from ...core import rng
         from ...ops.moe import moe_ffn, moe_ffn_indices
-        if self.gate_jitter and self.training:
-            raise NotImplementedError(
-                "MoELayer's gate jitter draws from the port's stream once "
-                "ROADMAP A8b lands")
+        jitter_key = rng.next_key() if (self.gate_jitter and
+                                        self.training) else None
         ffn = moe_ffn_indices if self.index_dispatch else moe_ffn
         shape = x.shape
         out, aux = ffn(x.reshape(-1, self.d_model), self.gate_weight,
                        self.expert_w1, self.expert_b1, self.expert_w2,
                        self.expert_b2, k=self.top_k,
                        capacity_factor=self.capacity_factor, mesh=self._mesh,
-                       expert_axis=self.expert_axis,
+                       expert_axis=self.expert_axis, jitter_key=jitter_key,
                        activation=self.activation)
         self.aux_loss = aux
         return out.reshape(shape)

@@ -215,8 +215,8 @@ class SpectralNorm(Layer):
     """``weight / sigma``, sigma the largest singular value of ``weight``
     (dim ``dim`` its rows) by ``power_iters`` power iterations from the
     buffers ``weight_u`` (h,) and ``weight_v`` (w,), fp32 draws of
-    Normal(0, 1) from torch's generator (``ROADMAP.md`` §C's initializer
-    difference).  Every forward writes the iterated u and v back into the
+    Normal(0, 1) from ``core.rng``'s stream, the reference's.  Every
+    forward writes the iterated u and v back into the
     buffers, as the reference's does; the gradient flows through the
     iteration, as JAX differentiates it there."""
 

@@ -18,8 +18,9 @@ Routing is the reference's: capacity positions from a cumulative sum over
 tokens in row order, first index on argmax ties, the GShard
 renormalisation over all k selected probabilities (dropped ones
 included), and the aux loss ``E · Σ_e mean_prob_e · routed_fraction_e /
-k``.  ``jitter_key`` is a ``torch.Generator`` (uniform noise in ±1e-2 on
-the logits).
+k``.  ``jitter_key`` is ``uint32[2]`` key data, as the reference's: the
+logits take ``core.rng.uniform`` noise on [-1e-2, 1e-2) in their own
+dtype, the reference's draw over the (T, E) logits bit for bit.
 
 Over a mesh (``moe_ffn``/``moe_ffn_indices`` with ``mesh``, a
 ``topology.ProcessMesh``) the semantics stay GSPMD's: **one routing of the
@@ -48,11 +49,15 @@ the global token order:
   rank, needs no host sync, and its backward is the other exchange;
 - experts held whole (a degree that does not divide E leaves them
   replicated, as the spec rule does) run locally on the rank's own slots:
-  routing stays global, and nothing is exchanged.
+  routing stays global, and nothing is exchanged;
+- gate jitter is the rank's block of rows of the reference's (T·R, E)
+  draw: its counters start at the rank's index times its own T·E, an
+  explicit offset (``core.rng.row_block``'s rule, which refuses a draw
+  whose dim 0 is not the batch rows, is not loosened for it).
 
 An expert axis the tokens are not split over (``model``), a sharding
-degree beside a split expert axis, a sep degree, and gate jitter over a
-mesh raise ``NotImplementedError`` (ROADMAP A7b; the jitter A8b).
+degree beside a split expert axis and a sep degree raise
+``NotImplementedError`` (ROADMAP A7b).
 """
 
 from __future__ import annotations
@@ -64,6 +69,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..core import rng
+
 gelu = partial(F.gelu, approximate="tanh")     # jax.nn.gelu's default
 
 
@@ -74,7 +81,7 @@ def _resolve_capacity(T, E, k, capacity, capacity_factor):
     return capacity
 
 
-def _check_mesh(mesh, expert_axis, jitter_key=None):
+def _check_mesh(mesh, expert_axis):
     """The group a mesh routes over (its batch ranks; None on one) and the
     group its experts split over (the expert axis's; None unless split),
     refusing what waits for ROADMAP A7b."""
@@ -97,10 +104,6 @@ def _check_mesh(mesh, expert_axis, jitter_key=None):
     route = mesh.batch_group()[0]
     if route.nranks <= 1:
         route = None
-    if route is not None and jitter_key is not None:
-        raise NotImplementedError(
-            "gate jitter over a mesh waits for ROADMAP A8b (the reference "
-            "draws one key over the global batch)")
     return route, (mesh.axis_group(expert_axis) if split else None)
 
 
@@ -116,6 +119,16 @@ def _expert_split(E, E_local, experts):
     return True
 
 
+def jitter_noise(jitter_key, logits, group=None):
+    """The gate's jitter, uniform on [-1e-2, 1e-2) in the (T, E) logits'
+    dtype: over ``group`` (the batch ranks, each with T tokens) this
+    rank's rows of the draw over the global (T·R, E) logits."""
+    T, E = logits.shape
+    offset = 0 if group is None else group.rank * T * E
+    return rng.uniform(jitter_key, (T, E), logits.dtype, -1e-2, 1e-2,
+                       logits.device, offset=offset)
+
+
 def _gating_rounds(logits, k, C, jitter_key, group=None):
     """The top-k selection loop both gating forms share.  Returns per-round
     (idx, pos, keep, gate) — idx (T,) the chosen expert, pos (T,) its slot
@@ -126,8 +139,7 @@ def _gating_rounds(logits, k, C, jitter_key, group=None):
     T, E = logits.shape
     dev = logits.device
     if jitter_key is not None:
-        noise = torch.empty(logits.shape, dtype=logits.dtype, device=dev)
-        logits = logits + noise.uniform_(-1e-2, 1e-2, generator=jitter_key)
+        logits = logits + jitter_noise(jitter_key, logits, group)
     probs = torch.softmax(logits.float(), dim=-1)                 # (T, E)
     masked = probs.detach()
     chosen = []
@@ -247,7 +259,7 @@ def moe_ffn(x, gate_w, w1, b1, w2, b2, k: int = 2,
     ``mesh`` x is this rank's tokens and ``w1``… all experts or this
     rank's block of them (module docstring).  Returns (out (T, H),
     aux_loss)."""
-    route, experts = _check_mesh(mesh, expert_axis, jitter_key)
+    route, experts = _check_mesh(mesh, expert_axis)
     split = _expert_split(gate_w.shape[-1], w1.shape[0], experts)
     logits = x.float() @ gate_w.float()
     combine, dispatch, aux = topk_gating(logits, k=k,
@@ -291,7 +303,7 @@ def moe_ffn_indices(x, gate_w, w1, b1, w2, b2, k: int = 2,
     (E·C + 1, H) buffer (row E·C takes the dropped ones and is sliced
     off), and each output row is gathered back.  Over ``mesh`` as
     :func:`moe_ffn`.  Returns (out, aux)."""
-    route, experts = _check_mesh(mesh, expert_axis, jitter_key)
+    route, experts = _check_mesh(mesh, expert_axis)
     T, H = x.shape
     E = gate_w.shape[-1]
     split = _expert_split(E, w1.shape[0], experts)

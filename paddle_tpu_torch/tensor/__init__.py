@@ -1,14 +1,14 @@
 """``paddle_tpu_torch.tensor`` (counterpart of ``paddle_tpu/tensor``): the
 functional tensor namespace over torch tensors — ``creation``, ``math``,
-``logic``, ``manipulation``, ``search``, ``stat`` and ``einsum``, and this
-file's ``cast``, ``shape``, ``rank``, ``unbind``, ``real``, ``imag``, the
-dtype predicates and ``set_printoptions``.
+``logic``, ``manipulation``, ``random``, ``search``, ``stat`` and
+``einsum``, and this file's ``cast``, ``shape``, ``rank``, ``unbind``,
+``real``, ``imag``, the dtype predicates and ``set_printoptions``.
 
 The reference patches these functions onto its ``Tensor`` as methods;
 the port's tensors are plain ``torch.Tensor``s and get no patched methods
 (ROADMAP §C): call ``paddle_tpu_torch.gather(x, i)``, or torch's own
-method where one exists.  ``random`` and ``linalg`` wait for ROADMAP
-A8b-1's later slices.
+method where one exists.  ``linalg`` waits for ROADMAP A8b-1's next
+slice.
 """
 
 from __future__ import annotations
@@ -37,6 +37,10 @@ from .manipulation import (  # noqa: F401
     transpose, unique, unique_consecutive, unsqueeze, unsqueeze_, unstack,
     view, view_as)
 from .math import *  # noqa: F401,F403
+from .random import (  # noqa: F401
+    bernoulli, bernoulli_, binomial, check_shape, exponential_, gaussian,
+    multinomial, normal, normal_, poisson, rand, randint, randint_like,
+    randn, randperm, standard_normal, uniform, uniform_)
 from .search import (  # noqa: F401
     argmax, argmin, argsort, bucketize, index_fill, kthvalue, masked_fill_,
     mode, nonzero, searchsorted, sort, topk, where, where_)

@@ -8,8 +8,8 @@ from ._utils import refuse_pretrained
 
 class AlexNet(nn.Layer):
     """``device`` defaults to the enclosing ``nn.building`` scope's, else
-    ``cuda`` (raises without a card); the weights are drawn from torch's
-    default generator on it.  The classifier's two dropouts draw from
+    ``cuda`` (raises without a card); the weights are drawn from
+    ``core.rng``'s stream on it, as the reference's are.  The classifier's two dropouts draw from
     ``core.rng``."""
 
     def __init__(self, num_classes=1000, device=None):

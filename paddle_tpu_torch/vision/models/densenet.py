@@ -51,8 +51,8 @@ _CFG = {
 
 class DenseNet(nn.Layer):
     """``device`` defaults to the enclosing ``nn.building`` scope's, else
-    ``cuda`` (raises without a card); the weights are drawn from torch's
-    default generator on it.  ``dropout`` > 0 gives every dense layer a
+    ``cuda`` (raises without a card); the weights are drawn from
+    ``core.rng``'s stream on it, as the reference's are.  ``dropout`` > 0 gives every dense layer a
     dropout, drawing from ``core.rng``."""
 
     def __init__(self, layers=121, bn_size=4, dropout=0.0, num_classes=1000,

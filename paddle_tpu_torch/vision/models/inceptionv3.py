@@ -104,8 +104,8 @@ class _InceptionE(nn.Layer):
 
 class InceptionV3(nn.Layer):
     """``device`` defaults to the enclosing ``nn.building`` scope's, else
-    ``cuda`` (raises without a card); the weights are drawn from torch's
-    default generator on it.  The head's dropout draws from ``core.rng``."""
+    ``cuda`` (raises without a card); the weights are drawn from
+    ``core.rng``'s stream on it, as the reference's are.  The head's dropout draws from ``core.rng``."""
 
     def __init__(self, num_classes=1000, with_pool=True, device=None):
         super().__init__()

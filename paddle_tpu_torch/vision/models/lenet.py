@@ -7,8 +7,8 @@ from ... import nn
 
 class LeNet(nn.Layer):
     """``device`` defaults to the enclosing ``nn.building`` scope's, else
-    ``cuda`` (raises without a card); the weights are drawn from torch's
-    default generator on it."""
+    ``cuda`` (raises without a card); the weights are drawn from
+    ``core.rng``'s stream on it, as the reference's are."""
 
     def __init__(self, num_classes=10, device=None):
         super().__init__()

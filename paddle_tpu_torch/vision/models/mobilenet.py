@@ -37,8 +37,8 @@ class DepthwiseSeparable(nn.Layer):
 
 class MobileNetV1(nn.Layer):
     """``device`` defaults to the enclosing ``nn.building`` scope's, else
-    ``cuda`` (raises without a card); the weights are drawn from torch's
-    default generator on it."""
+    ``cuda`` (raises without a card); the weights are drawn from
+    ``core.rng``'s stream on it, as the reference's are."""
 
     def __init__(self, scale=1.0, num_classes=1000, with_pool=True,
                  device=None):
@@ -92,8 +92,8 @@ class InvertedResidual(nn.Layer):
 
 class MobileNetV2(nn.Layer):
     """``device`` defaults to the enclosing ``nn.building`` scope's, else
-    ``cuda`` (raises without a card); the weights are drawn from torch's
-    default generator on it.  The classifier's dropout draws from
+    ``cuda`` (raises without a card); the weights are drawn from
+    ``core.rng``'s stream on it, as the reference's are.  The classifier's dropout draws from
     ``core.rng``."""
 
     def __init__(self, scale=1.0, num_classes=1000, with_pool=True,

@@ -76,8 +76,8 @@ class BottleneckBlock(nn.Layer):
 
 class ResNet(nn.Layer):
     """``device`` defaults to the enclosing ``nn.building`` scope's, else
-    ``cuda`` (raises without a card); the weights are drawn from torch's
-    default generator on it."""
+    ``cuda`` (raises without a card); the weights are drawn from
+    ``core.rng``'s stream on it, as the reference's are."""
 
     def __init__(self, block, depth=50, width=64, num_classes=1000,
                  with_pool=True, groups=1, data_format="NCHW", device=None):

@@ -74,8 +74,8 @@ _REPEATS = (4, 8, 4)
 
 class ShuffleNetV2(nn.Layer):
     """``device`` defaults to the enclosing ``nn.building`` scope's, else
-    ``cuda`` (raises without a card); the weights are drawn from torch's
-    default generator on it."""
+    ``cuda`` (raises without a card); the weights are drawn from
+    ``core.rng``'s stream on it, as the reference's are."""
 
     def __init__(self, scale=1.0, act="relu", num_classes=1000,
                  with_pool=True, device=None):

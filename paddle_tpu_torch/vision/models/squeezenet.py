@@ -24,8 +24,8 @@ class _Fire(nn.Layer):
 
 class SqueezeNet(nn.Layer):
     """``device`` defaults to the enclosing ``nn.building`` scope's, else
-    ``cuda`` (raises without a card); the weights are drawn from torch's
-    default generator on it."""
+    ``cuda`` (raises without a card); the weights are drawn from
+    ``core.rng``'s stream on it, as the reference's are."""
 
     def __init__(self, version="1.0", num_classes=1000, with_pool=True,
                  device=None):

@@ -110,12 +110,20 @@ def test_argmax_ties_take_the_first_expert():
 
 
 def test_jitter_key_is_a_generator():
+    """The jitter key is key data, as the reference's: the same key draws
+    the same noise, another key other noise, and the routing equals the
+    reference's on that key."""
+    from paddle_tpu_torch.core import rng
     logits = torch.tensor(np.random.RandomState(1).standard_normal((16, 4))
                           .astype(np.float32))
-    outs = [T.topk_gating_indices(logits, k=2, jitter_key=torch.Generator()
-                                  .manual_seed(s))[2] for s in (3, 3, 4)]
+    outs = [T.topk_gating_indices(logits, k=2, jitter_key=rng.make_key(s))[2]
+            for s in (3, 3, 4)]
     assert torch.equal(outs[0], outs[1]) and not torch.equal(outs[0],
                                                              outs[2])
+    jo = J.topk_gating_indices(jnp.asarray(logits.numpy()), k=2,
+                               jitter_key=jax.random.key(3))
+    np.testing.assert_allclose(outs[0].numpy(), np.asarray(jo[2]),
+                               rtol=1e-6, atol=1e-7)
 
 
 # ------------------------------------------------------------------ FFNs --

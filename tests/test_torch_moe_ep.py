@@ -14,7 +14,9 @@ exchanges move rows, so their outputs are equal and their gradients within
 each rank's expert block within 1e-5; the routing integers
 (``expert_idx``, ``slot_idx``, C) equal; each dispatch runs at
 ``capacity_factor`` 0.5, where experts overflow, and at 1.25, with the
-experts split over the ranks or replicated (``MOE_CASES``).  Each rank's
+experts split over the ranks or replicated (``MOE_CASES``); the routing
+with gate jitter (each rank's rows of the reference's one draw over the
+global logits) likewise.  Each rank's
 loss is ``sum(out · ct) +
 aux`` over its rows: the sum of the ranks' losses is the reference's
 ``sum(out · ct) + R · aux`` (every rank's loss reads the global aux),
@@ -47,6 +49,7 @@ UNI_ROWS, UNI_H = 6, 5             # rows a (rank, rank) block
 RAG_T, RAG_H, RAG_EL = 12, 5, 2    # ragged: rows a rank, width, experts a rank
 TOL = dict(rtol=1e-5, atol=1e-5)
 GAP_MIN = 1e-5
+JITTER_SEED = 23                   # the gate jitter's key: make_key(23)
 
 
 def _experts_of(world, split):
@@ -140,6 +143,12 @@ def _moe(world, rank, mesh, fn_name, cf, split):
         logits, k=K, capacity_factor=cf, group=route)
     res.update(expert_idx=ei.numpy(), slot_idx=si.numpy(),
                gates=gates.numpy(), aux_r=float(aux_r), C=C)
+    from paddle_tpu_torch.core import rng
+    ei, si, gates, _, _ = TM.topk_gating_indices(
+        logits, k=K, capacity_factor=cf, group=route,
+        jitter_key=rng.make_key(JITTER_SEED))
+    res.update(jit_expert_idx=ei.numpy(), jit_slot_idx=si.numpy(),
+               jit_gates=gates.numpy())
     return res
 
 
@@ -415,6 +424,31 @@ def test_moe_over_the_expert_axis_equals_one_device(started, ranks, world,
                                        **TOL)
     if cf < 1.0:                  # the overflowing case drops tokens
         assert (want["slot_idx"] == want["C"]).any()
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("cf,split", [(1.25, True), (0.5, False)])
+def test_jittered_routing_over_the_batch_ranks_is_the_global_draw(
+        started, ranks, world, cf, split):
+    """Gate jitter over the data ranks: each rank adds its rows of the
+    reference's one uniform draw over the global (T, E) logits, so the
+    routing (experts, global slots, gates) is the reference's."""
+    import jax
+    from paddle_tpu.ops import moe as JM
+    d = _moe_data(_experts_of(world, split), seed=_experts_of(world, split))
+    ei, si, gates, _, _ = JM.topk_gating_indices(
+        d["x"] @ d["gw"], k=K, capacity_factor=cf,
+        jitter_key=jax.random.key(JITTER_SEED))
+    n = TOK // world
+    for r, rk in enumerate(ranks[world]):
+        got = rk["moe_ffn_indices", cf, split]
+        rows = slice(r * n, (r + 1) * n)
+        np.testing.assert_array_equal(got["jit_expert_idx"],
+                                      np.asarray(ei)[rows])
+        np.testing.assert_array_equal(got["jit_slot_idx"],
+                                      np.asarray(si)[rows])
+        np.testing.assert_allclose(got["jit_gates"], np.asarray(gates)[rows],
+                                   rtol=1e-6, atol=1e-7)
 
 
 @pytest.mark.parametrize("world", [2, 4])

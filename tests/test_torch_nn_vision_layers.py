@@ -415,7 +415,10 @@ N_DRAW = 200_000
 
 
 def _draw(init, shape=(400, 500), dtype=torch.float32, seed=0):
-    return init(shape, dtype, torch.Generator().manual_seed(seed))
+    from paddle_tpu_torch.core import rng
+    rng.seed(seed)
+    with nn.building("cpu"):
+        return init(shape, dtype)
 
 
 def test_initializer_laws():
@@ -440,11 +443,12 @@ def test_initializer_laws():
     kn = _draw(I.KaimingNormal(), (64, 32, 3, 3))
     assert abs(kn.std() - math.sqrt(2.0 / (32 * 9))) < 0.003
     assert torch.equal(_draw(I.Constant(0.25), (3,)), torch.full((3,), 0.25))
-    a = I.Assign(np.arange(6.0))((2, 3), "float64")
+    with nn.building("cpu"):
+        a = I.Assign(np.arange(6.0))((2, 3), "float64")
     assert a.dtype == torch.float64 and a[1, 2] == 5.0
     bf = _draw(I.Normal(), (8,), torch.bfloat16)
     assert bf.dtype == torch.bfloat16
-    # the same generator seed draws the same values
+    # the same stream seed draws the same values
     assert torch.equal(_draw(I.Normal(), seed=3), _draw(I.Normal(), seed=3))
 
 
@@ -500,9 +504,11 @@ def test_building_needs_a_card_by_default():
 @pytest.mark.parametrize("make", ["linear", "batch_norm", "lenet"])
 def test_models_follow_the_scope_and_torch_manual_seed(make):
     """Parameters and buffers land on the innermost scope's device (a
-    model's ``device=None`` inherits it), drawn from torch's default
-    generator there: ``torch.manual_seed`` repeats the draws, as
-    ``paddle.seed`` does for the reference."""
+    model's ``device=None`` inherits it), drawn from ``core.rng``'s
+    stream: ``paddle_tpu_torch.seed`` repeats the draws, as
+    ``paddle.seed`` does for the reference (``torch.manual_seed`` no
+    longer plays a part)."""
+    import paddle_tpu_torch as pt
     from paddle_tpu_torch.vision.models import LeNet
 
     build = {"linear": lambda: nn.Linear(6, 5),
@@ -510,7 +516,8 @@ def test_models_follow_the_scope_and_torch_manual_seed(make):
              "lenet": lambda: LeNet()}[make]
 
     def state(seed):
-        torch.manual_seed(seed)
+        pt.seed(seed)
+        torch.manual_seed(0)
         with nn.building("cpu"):
             m = build()
         return {n: t.clone() for n, t in m.state_dict().items()}

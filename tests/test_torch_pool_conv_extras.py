@@ -4,8 +4,9 @@ adaptive max pooling, the transposed convs, ``fold``/``unfold`` and the
 ``calculate_gain`` in ``paddle_tpu_torch.nn`` against ``paddle_tpu.nn`` on
 the same numpy inputs: fp32 values within 1e-5, indices equal, the
 transposed convs' gradients within 1e-5, the layers' parameter names and
-shapes equal.  ``Orthogonal`` draws from torch's generator, so its law is
-checked (orthonormal rows or columns times the gain), not its draw.
+shapes equal.  ``Orthogonal``'s law is checked here (orthonormal rows or
+columns times the gain); its draw against the reference's after the same
+``seed()`` is ``test_torch_init_draws.py``'s.
 """
 
 import gc
@@ -207,30 +208,36 @@ def test_unfold_and_fold(kw):
                                           ((6, 3, 5), 2),
                                           ((4, 2, 3, 3, 3), 1)])
 def test_dirac_as_the_reference(shape, groups):
+    with nn.building("cpu"):              # an initializer's device
+        got = I.Dirac(groups)(shape, "float32")
     np.testing.assert_array_equal(
-        I.Dirac(groups)(shape, "float32").numpy(),
-        np.asarray(JI.Dirac(groups)(shape, "float32")))
+        got.numpy(), np.asarray(JI.Dirac(groups)(shape, "float32")))
 
 
 @pytest.mark.parametrize("shape", [(2, 3, 4, 4), (1, 2, 3, 5)])
 def test_bilinear_as_the_reference(shape):
+    with nn.building("cpu"):              # an initializer's device
+        got = I.Bilinear()(shape, "float32")
     np.testing.assert_array_equal(
-        I.Bilinear()(shape, "float32").numpy(),
-        np.asarray(JI.Bilinear()(shape, "float32")))
+        got.numpy(), np.asarray(JI.Bilinear()(shape, "float32")))
     with pytest.raises(ValueError, match="4-D"):
         I.Bilinear()((3, 3), "float32")
 
 
 @pytest.mark.parametrize("shape", [(3, 5), (6, 2, 2), (4, 4)])
 def test_orthogonal_law(shape):
-    torch.manual_seed(0)
-    w = I.Orthogonal(gain=2.0)(shape, torch.float64).reshape(shape[0], -1)
+    from paddle_tpu_torch.core import rng
+    rng.seed(0)
+    with nn.building("cpu"):
+        w = I.Orthogonal(gain=2.0)(shape, torch.float64).reshape(
+            shape[0], -1)
     small = min(w.shape)
     gram = w @ w.T if w.shape[0] == small else w.T @ w
     torch.testing.assert_close(gram, 4.0 * torch.eye(small,
                                                      dtype=torch.float64),
                                rtol=0, atol=1e-5)   # an fp32 QR
-    assert I.Orthogonal()(shape, "float32").dtype == torch.float32
+    with nn.building("cpu"):
+        assert I.Orthogonal()(shape, "float32").dtype == torch.float32
 
 
 def test_calculate_gain_table():

@@ -268,16 +268,21 @@ def test_top_level_helpers():
 
 
 def test_seed_repeats_both_kinds_of_draw():
+    """``seed`` repeats a key and a tensor draw, and both are the
+    reference's: every draw of the port (``tensor.random``, the
+    initializers) takes its key from ``core.rng``'s stream, which
+    ``torch.manual_seed`` no longer stands in for."""
     P.seed(11)
-    k1, t1 = rng.next_key(), torch.rand(3)
+    k1, t1 = rng.next_key(), P.rand([3], device="cpu")
     P.seed(11)
-    k2, t2 = rng.next_key(), torch.rand(3)
+    k2, t2 = rng.next_key(), P.rand([3], device="cpu")
     assert np.array_equal(k1, k2) and torch.equal(t1, t2)
     paddle.seed(11)
     from paddle_tpu.core import rng as jrng
     import jax
     assert np.array_equal(np.asarray(jax.random.key_data(jrng.next_key())),
                           k1)
+    np.testing.assert_array_equal(t1.numpy(), paddle.rand([3]).numpy())
 
 
 def test_dtype_table_and_default():

@@ -380,6 +380,9 @@ MODULES = {
     "paddle_tpu/tensor/einsum.py": "paddle_tpu_torch.tensor.einsum",
     "paddle_tpu/tensor/manipulation.py":
         "paddle_tpu_torch.tensor.manipulation",
+    "paddle_tpu/tensor/random.py": "paddle_tpu_torch.tensor.random",
+    "paddle_tpu/nn/layer/rnn.py": "paddle_tpu_torch.nn.layer.rnn",
+    "paddle_tpu/nn/decode.py": "paddle_tpu_torch.nn.decode",
     "paddle_tpu/nn/functional/__init__.py": "paddle_tpu_torch.nn.functional",
     "paddle_tpu/nn/functional/activation.py":
         "paddle_tpu_torch.nn.functional.activation",
@@ -400,7 +403,6 @@ DEFERRED = {
     ("paddle_tpu_torch", "flops"): "A8b-2",
     ("paddle_tpu_torch", "enable_static"): "A8c",
     ("paddle_tpu_torch", "disable_dygraph"): "A8c",
-    ("paddle_tpu_torch.nn.functional.activation", "gumbel_softmax"): "A8b-1",
     ("paddle_tpu_torch.nn.layer.loss", "HSigmoidLoss"): "A8b-1",
 }
 
@@ -438,11 +440,8 @@ def test_deferred_names_raise_naming_their_item():
     x = torch.zeros(2, 3)
     calls = {"summary": lambda f: f(None), "flops": lambda f: f(None, None),
              "enable_static": lambda f: f(), "disable_dygraph": lambda f: f(),
-             "gumbel_softmax": lambda f: f(x),
              "HSigmoidLoss": lambda f: f(4, 5)}
     for (mod, name), item in DEFERRED.items():
         fn = getattr(importlib.import_module(mod), name)
         with pytest.raises(NotImplementedError, match=item):
             calls[name](fn)
-    with pytest.raises(NotImplementedError, match="A8b-1"):
-        P.nn.functional.rrelu(x, training=True)

@@ -104,6 +104,7 @@ def _momentum(cls):
 
 def _port(name, dtype, **kw):
     torch.manual_seed(0)
+    rng.seed(0)                # the port's layers draw their weights here
     return getattr(tm, name)(num_classes=CLASSES, device="cpu",
                              **kw).to(dtype)
 
